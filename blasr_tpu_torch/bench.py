@@ -1,4 +1,4 @@
-"""The bench corpus and operating point of the mapping path.
+"""The bench corpora and operating point of the mapping path.
 
 The same corpus and parameters as the repository's ``bench.py``: a 4.6 Mb
 simulated genome (seed 7) and 2000 simulated PacBio-like reads of mean
@@ -9,13 +9,19 @@ W=32 band on every bucket up to 3328 bp, best_n 1, -m 4 output (no move
 strings) and band escalation on. ``accuracy_true_locus`` is the fraction
 of reads whose best record lies on the true strand within 100 bp of the
 true start and end.
+
+The FASTQ corpus (``ensure_fastq_corpus``) holds 2000 reads of 500-3000 bp
+on the same genome from the alchemy simulator under the published PacBio
+CLR error model (``sim.ErrorModel.published_clr``, seed 13): quality
+values around phred 10, low at error sites, and the insertion bursts that
+make the narrow band clip, so band escalation runs on the main path.
 """
 
 from __future__ import annotations
 
 import os
 
-from blasr_tpu.params import MappingParams
+from blasr_tpu_torch.params import MappingParams
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_DIR = os.path.join(REPO, "benchdata")
@@ -25,8 +31,8 @@ READS_FA = os.path.join(BENCH_DIR, "reads.fasta")
 
 def ensure_corpus(bench_dir: str = BENCH_DIR) -> tuple[str, str]:
     """Write the simulated genome and reads (once); returns their paths."""
-    from blasr_tpu.io.fasta import read_fasta, write_fasta
-    from blasr_tpu.sim import simulate_genome, simulate_reads
+    from blasr_tpu_torch.io.fasta import read_fasta, write_fasta
+    from blasr_tpu_torch.sim import simulate_genome, simulate_reads
 
     genome_fa = os.path.join(bench_dir, "genome.fasta")
     reads_fa = os.path.join(bench_dir, "reads.fasta")
@@ -40,21 +46,37 @@ def ensure_corpus(bench_dir: str = BENCH_DIR) -> tuple[str, str]:
     return genome_fa, reads_fa
 
 
+def ensure_fastq_corpus(bench_dir: str = BENCH_DIR) -> str:
+    """Write the CLR-model FASTQ corpus beside the bench genome (once);
+    returns its path."""
+    from blasr_tpu_torch.io.fasta import read_fasta
+    from blasr_tpu_torch.io.fastq import write_fastq
+    from blasr_tpu_torch.sim import ErrorModel, simulate_reads_alchemy
+
+    genome_fa, _ = ensure_corpus(bench_dir)
+    reads_fq = os.path.join(bench_dir, "reads_clr.fastq")
+    if not os.path.exists(reads_fq):
+        g = read_fasta(genome_fa)[0][1]
+        reads, _ = simulate_reads_alchemy(g, ErrorModel.published_clr(), 2000, seed=13)
+        write_fastq(reads_fq, [(r.name, r.codes, r.qual) for r in reads])
+    return reads_fq
+
+
 def load_bench_index(genome_fa: str = GENOME_FA, k: int = 14):
     """The k=14 suffix-array index of the bench genome (cached beside it)."""
-    from blasr_tpu.index.artifacts import load_index
+    from blasr_tpu_torch.index.artifacts import load_index
 
     return load_index(genome_fa, k=k)
 
 
 def load_reads(reads_fa: str = READS_FA):
-    from blasr_tpu.io.batching import read_records
+    from blasr_tpu_torch.io.batching import read_records
 
     return read_records(reads_fa)
 
 
 def write_reads(path: str, reads) -> None:
-    from blasr_tpu.io.fasta import write_fasta
+    from blasr_tpu_torch.io.fasta import write_fasta
 
     write_fasta(path, [(r.name, r.codes) for r in reads])
 
@@ -77,36 +99,52 @@ def bench_params(**overrides) -> MappingParams:
     return MappingParams(**kw)
 
 
-def simulated_windows(genome, n: int, L: int, pad2: int = 128, seed: int = 0):
-    """``n`` simulated reads of a length-``L`` bucket (forward-strand codes,
-    cut to L, N-padded) and their true-locus genome windows of
-    ``T = L + 2 * pad2`` codes (5 outside the genome), as the mapper places
-    them: (query (n, L) uint8, qlen (n,) int32, target (n, T) uint8)."""
+def true_locus_windows(genome, reads, L: int, pad2: int = 128):
+    """The DP inputs of simulated reads at their true loci, as the mapper
+    places them: each read's forward-strand codes cut to ``L`` (N-padded),
+    its quality values in the same orientation (phred 15 where it has none
+    or past its end), and its genome window of ``T = L + 2 * pad2`` codes
+    (5 outside the genome): (query (n, L) uint8, qlen (n,) int32, target
+    (n, T) uint8, qual (n, L) uint8)."""
     import numpy as np
 
-    from blasr_tpu.core.encode import revcomp_codes
-    from blasr_tpu.sim import simulate_reads
+    from blasr_tpu_torch.core.encode import revcomp_codes
+    from blasr_tpu_torch.sim import parse_truth
 
+    n = len(reads)
     T = L + 2 * pad2
-    reads, truth = simulate_reads(genome, n, mean_len=int(L * 0.7), seed=seed)
     Q = np.full((n, L), 4, np.uint8)
     Tg = np.full((n, T), 5, np.uint8)
+    qual = np.full((n, L), 15, np.uint8)
     qlen = np.zeros(n, np.int32)
     G = len(genome)
-    for i, (r, (start, _end, strand)) in enumerate(zip(reads, truth)):
+    for i, r in enumerate(reads):
+        start, _end, strand = parse_truth(r.name)
         codes = revcomp_codes(r.codes) if strand else r.codes
         m = min(len(codes), L)
         Q[i, :m] = codes[:m]
         qlen[i] = m
+        if r.qual is not None:
+            qual[i, :m] = (r.qual[::-1] if strand else r.qual)[:m]
         t0 = start - pad2
         lo, hi = max(t0, 0), min(t0 + T, G)
         Tg[i, lo - t0 : hi - t0] = genome[lo:hi]
-    return Q, qlen, Tg
+    return Q, qlen, Tg, qual
+
+
+def simulated_windows(genome, n: int, L: int, pad2: int = 128, seed: int = 0):
+    """``n`` simulated reads of a length-``L`` bucket (mean length 0.7 L) at
+    their true loci: (query (n, L) uint8, qlen (n,) int32, target (n, T)
+    uint8), see ``true_locus_windows``."""
+    from blasr_tpu_torch.sim import simulate_reads
+
+    reads, _ = simulate_reads(genome, n, mean_len=int(L * 0.7), seed=seed)
+    return true_locus_windows(genome, reads, L, pad2)[:3]
 
 
 def accuracy_true_locus(records, reads) -> float:
     """Share of reads whose best record hits the simulated true locus."""
-    from blasr_tpu.sim import parse_truth
+    from blasr_tpu_torch.sim import parse_truth
 
     best = {}
     for r in records:

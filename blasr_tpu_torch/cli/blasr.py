@@ -1,13 +1,14 @@
 """Command line of the port: -m 4 mapping on one device.
 
-    python -m blasr_tpu_torch.cli.blasr reads.fa genome.fa -m 4 \\
+    python -m blasr_tpu_torch.cli.blasr reads.{fa,fastq,sam} genome.fa -m 4 \\
         [-out FILE] [-header] [-device cuda|cpu] [mapping options]
 
-The flags are those of ``blasr_tpu.cli.blasr`` and map to ``MappingParams``
-through the same ``params_from_args``. Only the options of the ported
-slice are accepted (see ``SUPPORTED``); any other option given raises an
-error that names it. ``-device`` defaults to ``cuda`` and never falls back
-to the CPU.
+The flags are the JAX package's (``cli/args.py`` holds the port's copy of
+its parser and ``params_from_args``). Only the options of the ported slice
+are accepted (see ``SUPPORTED``); any other option given raises an error
+that names it. FASTQ quality values, and the ``iq``/``sq`` tracks of a SAM
+read file, scale the DP's costs unless ``-ignoreQualities`` is given.
+``-device`` defaults to ``cuda`` and never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import json
 import sys
 import time
 
-from blasr_tpu.cli.blasr import build_arg_parser, params_from_args
+from blasr_tpu_torch.cli.args import build_arg_parser, params_from_args
 
 # argparse destinations the port honours (with the reference's defaults)
 SUPPORTED = {
@@ -28,6 +29,7 @@ SUPPORTED = {
     "minSubreadLength", "minMapQV", "minInterval", "forwardOnly",
     "indel", "insertion", "deletion", "match", "mismatch",
     "affineOpen", "affineExtend", "pvaltype", "indelRate",
+    "ignoreQualities", "minAvgQual",
 }
 
 
@@ -71,8 +73,9 @@ def main(argv=None) -> int:
     params = params_from_args(args)
     params.validate()
 
-    from blasr_tpu.index.artifacts import load_index
-    from blasr_tpu.io.batching import read_records
+    from blasr_tpu_torch.index.artifacts import load_index
+    from blasr_tpu_torch.io.batching import read_records
+    from blasr_tpu_torch.ops import dp_launch_counts, launch_counts
     from blasr_tpu_torch.output.m4 import write_m4
     from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
 
@@ -100,6 +103,8 @@ def main(argv=None) -> int:
                 "indexLoadSeconds": round(t_index, 3),
                 "mapSeconds": round(t_map, 3),
                 "stages": met.to_dict(),
+                "kernelLaunches": launch_counts(),
+                "dpLaunches": dp_launch_counts(),
             }, f, indent=2)
     print(f"Finished mapping {len(reads) - len(unmapped)}/{len(reads)} reads",
           file=sys.stderr)

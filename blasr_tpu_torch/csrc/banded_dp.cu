@@ -2,12 +2,17 @@
 //
 // Replaces the Pallas kernel banded_align_pallas (blasr_tpu/ops/
 // banded_pallas.py:716, pallas_call at :957, body _make_kernel :200-686)
-// in its unguided, quality-free, traceback mode. It computes exactly what
+// in its unguided modes, with or without quality values (the TPU's
+// per-cell quality costs are :537-550). It computes exactly what
 // the plain version (blasr_tpu_torch/ops/banded_align.py, itself the port
 // of the XLA-scan oracle blasr_tpu/ops/banded_align.py) computes:
 //   cell (a, w): q = qoff[a] + w, t = a - q
 //   H = min(min(H(a-2, diag), 0) + sub, H(a-1, up) + ins, H(a-1, left) + del,
 //           E, F), clamped at 0; E/F the affine open/extend recurrences;
+//   with quality values (QMode single: one uint8 phred stream; dual: uint16
+//   phred pairs, low byte sq, high byte iq) the mismatch cost of an ACGT
+//   pair and the insertion cost become max(1, floor((base * clip(q, 4, 30)
+//   + 7) / 15)) of the cell's query base, phred 15 past the read's row;
 //   cells outside qlen, [tlo, thi) or t >= 0 are INF;
 //   one uint16 arrow word per cell: 3-bit source, E bit, F bit, 6-bit
 //   diagonal run, 5-bit in-run mismatch count, stored (S, I, W);
@@ -22,7 +27,10 @@
 //
 // Design: one thread block per item and one thread per band cell (W is a
 // template parameter in {32, 64, 128, 256}); all recurrence state lives in
-// registers. The +-1 band shifts read a neighbour lane's value of the
+// registers. The quality mode is a second template parameter, so the
+// quality-free instance keeps its code and registers; a quality mode adds
+// one global load of the cell's phred byte(s) beside the query code and a
+// few integer operations per cell. The +-1 band shifts read a neighbour lane's value of the
 // previous step(s): with W = 32 the band is one warp and the exchange is a
 // __shfl_sync; with W > 32 each step's values go to a 3-slot shared-memory
 // ring (step a writes slot a % 3 and reads the other two), so one barrier
@@ -42,6 +50,8 @@ constexpr int kInf = 1 << 30;
 constexpr int kSrcDiag = 0, kSrcUp = 1, kSrcLeft = 2, kSrcE = 3, kSrcF = 4,
               kSrcStop = 5, kSrcDiagStart = 6;
 constexpr int kMaxSteps = 1 << 22;  // a must fit the 23 bits of the best key
+constexpr int kQualNone = 0, kQualSingle = 1, kQualDual = 2;
+constexpr int kQvNeutral = 15;
 
 struct Scores {
   int match, mismatch, n_score, ins, del, open, extend;
@@ -52,17 +62,26 @@ __device__ __forceinline__ int lane_value(int x, int lane, int fill) {
   return (lane >= 0 && lane < 32) ? v : fill;
 }
 
+// max(1, floor((base * clip(q, 4, 30) + 7) / 15)), floor also for a
+// negative base
+__device__ __forceinline__ int qv_cost(int base, int q) {
+  const int n = base * min(max(q, 4), 30) + 7;
+  const int d = n >= 0 ? n / 15 : -((14 - n) / 15);
+  return max(d, 1);
+}
+
 template <int W>
 __device__ __forceinline__ int row_value(const int* row, int w, int fill) {
   return (w >= 0 && w < W) ? row[w] : fill;
 }
 
-template <int W>
+template <int W, int QMode>
 __global__ void __launch_bounds__(W)
 banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ qlen,
                  const uint8_t* __restrict__ target, const int32_t* __restrict__ tlo,
                  const int32_t* __restrict__ thi, const int32_t* __restrict__ qoff,
-                 int32_t* __restrict__ best, uint16_t* __restrict__ arrows,
+                 const void* __restrict__ qual, int32_t* __restrict__ best,
+                 uint16_t* __restrict__ arrows,
                  int n_items, int L, int T, int S, Scores sc) {
   constexpr int kSlots = W > 32 ? 3 : 1;
   __shared__ int sH[kSlots][W], sE[kSlots][W], sF[kSlots][W], sR[kSlots][W],
@@ -100,6 +119,19 @@ banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ 
     const int qc = q < L ? static_cast<int>(__ldg(qrow + q)) : 4;
     const int tc = (t >= 0 && t < T) ? static_cast<int>(__ldg(trow + t)) : 5;
     const bool valid = q < ql && t >= tl && t < th && t >= 0;
+    int x_cell = sc.mismatch, ins_cell = sc.ins;
+    if constexpr (QMode == kQualSingle) {
+      const uint8_t* qv = static_cast<const uint8_t*>(qual) + static_cast<size_t>(i) * L;
+      const int v = q < L ? static_cast<int>(__ldg(qv + q)) : kQvNeutral;
+      x_cell = qv_cost(sc.mismatch, v);
+      ins_cell = qv_cost(sc.ins, v);
+    } else if constexpr (QMode == kQualDual) {
+      const uint16_t* qv = static_cast<const uint16_t*>(qual) + static_cast<size_t>(i) * L;
+      const int v = q < L ? static_cast<int>(__ldg(qv + q))
+                          : (kQvNeutral | (kQvNeutral << 8));
+      x_cell = qv_cost(sc.mismatch, v & 255);
+      ins_cell = qv_cost(sc.ins, v >> 8);
+    }
 
     int H1_up, H1_left, E1_left, F1_up, H2_diag, R2_diag, M2_diag;
     if constexpr (W == 32) {
@@ -122,7 +154,7 @@ banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ 
 
     const bool eq = qc == tc && qc < 4;
     const bool anyn = qc >= 4 || tc >= 4;
-    const int sub = eq ? sc.match : (anyn ? sc.n_score : sc.mismatch);
+    const int sub = eq ? sc.match : (anyn ? sc.n_score : x_cell);
 
     const int e_open = H1_left + sc.open;
     int E_new = min(E1_left, e_open) + sc.extend;
@@ -133,7 +165,7 @@ banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ 
 
     int h = min(H2_diag, 0) + sub;
     int src = H2_diag > 0 ? kSrcDiagStart : kSrcDiag;
-    int v = H1_up + sc.ins;
+    int v = H1_up + ins_cell;
     if (v < h) { h = v; src = kSrcUp; }
     v = H1_left + sc.del;
     if (v < h) { h = v; src = kSrcLeft; }
@@ -207,36 +239,66 @@ banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ 
   }
 }
 
-template <int W>
-void launch(const void* query, const void* qlen, const void* target, const void* tlo,
-            const void* thi, const void* qoff, void* best, void* arrows, int n_items,
-            int L, int T, int S, Scores sc, cudaStream_t stream) {
-  banded_dp_kernel<W><<<n_items, W, 0, stream>>>(
+template <int W, int QMode>
+void launch_mode(const void* query, const void* qlen, const void* target, const void* tlo,
+                 const void* thi, const void* qoff, const void* qual, void* best,
+                 void* arrows, int n_items, int L, int T, int S, Scores sc,
+                 cudaStream_t stream) {
+  banded_dp_kernel<W, QMode><<<n_items, W, 0, stream>>>(
       static_cast<const uint8_t*>(query), static_cast<const int32_t*>(qlen),
       static_cast<const uint8_t*>(target), static_cast<const int32_t*>(tlo),
-      static_cast<const int32_t*>(thi), static_cast<const int32_t*>(qoff),
+      static_cast<const int32_t*>(thi), static_cast<const int32_t*>(qoff), qual,
       static_cast<int32_t*>(best), static_cast<uint16_t*>(arrows), n_items, L, T,
       S, sc);
 }
 
+template <int W>
+bool launch(const void* query, const void* qlen, const void* target, const void* tlo,
+            const void* thi, const void* qoff, const void* qual, int qmode, void* best,
+            void* arrows, int n_items, int L, int T, int S, Scores sc,
+            cudaStream_t stream) {
+  switch (qmode) {
+    case kQualNone:
+      launch_mode<W, kQualNone>(query, qlen, target, tlo, thi, qoff, qual, best, arrows,
+                                n_items, L, T, S, sc, stream);
+      return true;
+    case kQualSingle:
+      launch_mode<W, kQualSingle>(query, qlen, target, tlo, thi, qoff, qual, best, arrows,
+                                  n_items, L, T, S, sc, stream);
+      return true;
+    case kQualDual:
+      launch_mode<W, kQualDual>(query, qlen, target, tlo, thi, qoff, qual, best, arrows,
+                                n_items, L, T, S, sc, stream);
+      return true;
+    default:
+      return false;
+  }
+}
+
 }  // namespace
 
+// qual: (n_items, L) uint8 (qmode 1) or uint16 (qmode 2), NULL for qmode 0
 extern "C" int banded_dp_launch(const void* query, const void* qlen, const void* target,
                                 const void* tlo, const void* thi, const void* qoff,
-                                void* best, void* arrows, int n_items, int L, int T,
-                                int S, int W, int match, int mismatch, int n_score,
-                                int ins, int del, int open, int extend, void* stream) {
+                                const void* qual, int qmode, void* best, void* arrows,
+                                int n_items, int L, int T, int S, int W, int match,
+                                int mismatch, int n_score, int ins, int del, int open,
+                                int extend, void* stream) {
   if (n_items <= 0) return 0;
   if (S != L + T - 1 || S <= 0 || S >= kMaxSteps)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((qmode == kQualNone) != (qual == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Scores sc{match, mismatch, n_score, ins, del, open, extend};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bool ok = false;
   switch (W) {
-    case 32: launch<32>(query, qlen, target, tlo, thi, qoff, best, arrows, n_items, L, T, S, sc, st); break;
-    case 64: launch<64>(query, qlen, target, tlo, thi, qoff, best, arrows, n_items, L, T, S, sc, st); break;
-    case 128: launch<128>(query, qlen, target, tlo, thi, qoff, best, arrows, n_items, L, T, S, sc, st); break;
-    case 256: launch<256>(query, qlen, target, tlo, thi, qoff, best, arrows, n_items, L, T, S, sc, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 32: ok = launch<32>(query, qlen, target, tlo, thi, qoff, qual, qmode, best, arrows, n_items, L, T, S, sc, st); break;
+    case 64: ok = launch<64>(query, qlen, target, tlo, thi, qoff, qual, qmode, best, arrows, n_items, L, T, S, sc, st); break;
+    case 128: ok = launch<128>(query, qlen, target, tlo, thi, qoff, qual, qmode, best, arrows, n_items, L, T, S, sc, st); break;
+    case 256: ok = launch<256>(query, qlen, target, tlo, thi, qoff, qual, qmode, best, arrows, n_items, L, T, S, sc, st); break;
+    default: break;
   }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,10 +20,18 @@ def kernel_wrappers() -> dict:
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_width"):
-            for w in fn.launches_by_width:
-                fn.launches_by_width[w] = 0
+        if hasattr(fn, "launches_by_shape"):
+            for key in fn.launches_by_shape:
+                fn.launches_by_shape[key] = 0
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def dp_launch_counts() -> dict:
+    """The DP kernel's launches per band width and quality mode, as
+    ``{"W32/single": n, ...}`` (shapes launched at least once)."""
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
+
+    return {f"W{w}/{m}": n for (w, m), n in banded_align.launches_by_shape.items() if n}

@@ -1,12 +1,17 @@
-"""Build and load the hand-written CUDA kernels of the package.
+"""Build and load the package's native code: the CUDA kernels and the C++
+host helpers.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ctypes. The library
-lands in ``build/blasr_tpu_torch/`` at the repository root under a name
-keyed by a hash of the sources, so an edited kernel rebuilds and an
-unchanged one loads at once. The build runs at the first CUDA call, never
-at import. A missing ``nvcc`` or a failed compile raises with the
-compiler's output; nothing falls back to the plain versions.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, and ``csrc/host_native.cpp``
+by ``g++``; all compilers start together and the build waits for them all.
+The libraries land in ``build/blasr_tpu_torch/`` at the repository root
+under names keyed by a hash of each source and its flags, so an edited
+source rebuilds and an unchanged one loads at once. Loading happens at
+first use, never at import.
+
+The CUDA kernels have no fallback: a missing ``nvcc`` or a failed compile
+raises with the compiler's output. The host helpers are optional: without
+``g++`` the callers in ``native.py`` run their plain numpy versions.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -26,42 +32,52 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+# no -march=native: the library may be loaded on another host than the
+# one that built it
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+CUDA_SOURCES = ("banded_dp.cu", "gather.cu")
+HOST_SOURCE = "host_native.cpp"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# C signatures of the exported launchers (each returns a cudaError_t)
+# C signatures of the exported functions (each CUDA launcher returns a
+# cudaError_t)
 _SIGNATURES = {
-    "banded_dp_launch": [
+    "banded_dp_launch": ([
         _P, _P, _P, _P, _P, _P,      # query qlen target tlo thi qoff
+        _P, _I,                      # qual (I, L) uint8 / uint16 or NULL, qmode
         _P, _P,                      # best (3, I) int32, arrows (S, I, W) uint16
         _I, _I, _I, _I, _I,          # I L T S W
         _I, _I, _I, _I, _I, _I, _I,  # match mismatch n ins del open extend
         _P,                          # cudaStream_t
-    ],
-    "gather_spans_launch": [_P, _LL, _P, _P, _I, _I, _P],
-    "gather_rows_launch": [_P, _I, _I, _P, _P, _I, _P],
+    ], ctypes.c_int),
+    "gather_spans_launch": ([_P, _LL, _P, _P, _I, _I, _P], ctypes.c_int),
+    "gather_rows_launch": ([_P, _I, _I, _P, _P, _I, _P], ctypes.c_int),
+    "bn_sais_i32": ([_P, ctypes.c_int32, _P], ctypes.c_int),
+    "bn_sais_i64": ([_P, ctypes.c_int64, _P], ctypes.c_int),
+    "bn_encode_strip": ([ctypes.c_char_p, ctypes.c_int64, _P], ctypes.c_int64),
+    "bn_unpack_moves": ([_P, ctypes.c_int64, _P], None),
 }
 
 _lock = threading.Lock()
-_lib = None
-BUILD_SECONDS = 0.0  # wall time of the last compile in this process (0 = cached)
+_cuda = None
+_host = None
+_host_tried = False
+BUILD_SECONDS = 0.0  # wall time of the last build in this process (0 = cached)
 
 
-def _sources() -> list[str]:
-    return sorted(
-        os.path.join(CSRC, f) for f in os.listdir(CSRC)
-        if f.endswith((".cu", ".cuh"))
-    )
+def _which(name: str, env: str | None = None) -> str | None:
+    cand = shutil.which(name)
+    if cand is None and env is not None:
+        path = os.path.join(os.environ.get(env) or "/usr/local/cuda", "bin", name)
+        if os.path.exists(path):
+            cand = path
+    return cand
 
 
 def _nvcc() -> str:
-    cand = shutil.which("nvcc")
-    if cand is None:
-        home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-        path = os.path.join(home, "bin", "nvcc")
-        if os.path.exists(path):
-            cand = path
+    cand = _which("nvcc", "CUDA_HOME")
     if cand is None:
         raise RuntimeError(
             "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
@@ -70,48 +86,97 @@ def _nvcc() -> str:
     return cand
 
 
-def library_path() -> str:
+def library_path(source: str) -> str:
+    """Where the library of ``csrc/<source>`` lands: keyed by the source,
+    every header of ``csrc/`` and the compiler flags."""
     h = hashlib.sha256()
-    for path in _sources():
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as f:
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith((".cuh", ".h")))
+    for name in (source, *headers):
+        h.update(name.encode())
+        with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libblasr_kernels_{h.hexdigest()[:16]}.so")
+    flags = GXX_FLAGS if source == HOST_SOURCE else NVCC_FLAGS
+    h.update(" ".join(flags).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
-def _compile(out: str) -> None:
+def _build(jobs: list[tuple[str, list[str]]]) -> None:
+    """Run the compile commands of ``jobs`` (output path, command) all at
+    once; raise with the compiler's output if any fails."""
     global BUILD_SECONDS
+    jobs = [(out, cmd) for out, cmd in jobs if not os.path.exists(out)]
+    if not jobs:
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cu = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    procs = []
+    for out, cmd in jobs:
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs.append((out, tmp, cmd + ["-o", tmp], subprocess.Popen(
+            cmd + ["-o", tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for out, tmp, cmd, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} failed ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent builder never loads a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
     BUILD_SECONDS = time.time() - t0
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, compiled on first use."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            path = library_path()
-            if not os.path.exists(path):
-                _compile(path)
-            lib = ctypes.CDLL(path)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
+def _host_job() -> tuple[str, list[str]] | None:
+    gxx = _which("g++")
+    if gxx is None:
+        return None
+    return library_path(HOST_SOURCE), [gxx, *GXX_FLAGS, os.path.join(CSRC, HOST_SOURCE)]
+
+
+def _load(paths: list[str]) -> types.SimpleNamespace:
+    fns = {}
+    for path in paths:
+        lib = ctypes.CDLL(path)
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name, None)
+            if fn is not None:
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+                fn.restype = restype
+                fns[name] = fn
+    return types.SimpleNamespace(**fns)
+
+
+def load_library() -> types.SimpleNamespace:
+    """The CUDA launchers, compiled on first use. The host helpers' library
+    is compiled in the same parallel build when ``g++`` is present."""
+    global _cuda
+    with _lock:
+        if _cuda is None:
+            nvcc = _nvcc()
+            jobs = [
+                (library_path(src), [nvcc, *NVCC_FLAGS, "-I", CSRC, os.path.join(CSRC, src)])
+                for src in CUDA_SOURCES
+            ]
+            host = _host_job()
+            _build(jobs + ([host] if host else []))
+            _cuda = _load([out for out, _ in jobs])
+        return _cuda
+
+
+def load_host_library() -> types.SimpleNamespace | None:
+    """The C++ host helpers (``csrc/host_native.cpp``), compiled by ``g++``
+    on first use; None when no ``g++`` is on the PATH."""
+    global _host, _host_tried
+    with _lock:
+        if not _host_tried:
+            _host_tried = True
+            job = _host_job()
+            if job is not None:
+                _build([job])
+                _host = _load([job[0]])
+        return _host
 
 
 def check(err: int, what: str) -> None:

@@ -1,12 +1,19 @@
 """Banded affine-gap local alignment over anti-diagonals: the plain version.
 
 PyTorch counterpart of ``blasr_tpu.ops.banded_align`` (the XLA-scan oracle)
-for one shared band schedule ``qoff`` and no quality values. Cell
+for one shared band schedule ``qoff``, with or without quality values. Cell
 ``(a, w)`` of anti-diagonal ``a`` sits at ``q = qoff[a] + w``,
 ``t = a - q``; H is the min-score local recurrence clamped at 0, E and F
 the affine open/extend pair. Each cell emits one uint16 arrow word:
 bits 0-2 H source, bit 3 E-extend, bit 4 F-extend, bits 5-10 the diagonal
 run length, bits 11-15 the mismatches inside the run.
+
+Quality values scale two costs per cell (``qv_scaled_costs``): a uint8
+(I, L) phred stream scales both the mismatch and the insertion cost; the
+dual stream, uint16 phred pairs carried as their bit pattern in an int16
+(I, L) tensor, scales the mismatch cost by its low byte (sq) and the
+insertion cost by its high byte (iq). Past a read's padded length the
+stream reads the neutral phred 15 (unscaled costs).
 
 This module is the reference the CUDA kernel (``csrc/banded_dp.cu``,
 wrapped by ``ops/banded_cuda.py``) is held against: one Python loop over
@@ -20,6 +27,8 @@ from typing import NamedTuple, Optional
 import torch
 
 INF = 2**30
+QV_NEUTRAL = 15                       # phred that leaves a cost unscaled
+QV_NEUTRAL_DUAL = 15 | (15 << 8)      # both bytes of the dual stream
 
 # H-source codes stored in the arrow word (priority order on ties)
 SRC_DIAG, SRC_UP, SRC_LEFT, SRC_E, SRC_F, SRC_STOP = 0, 1, 2, 3, 4, 5
@@ -72,6 +81,28 @@ def make_qoff_num(L: int, T: int, W: int, diag: int, num, device=None) -> torch.
     return torch.clamp(centre_q - W // 2, 0, max(0, L - W)).to(torch.int32)
 
 
+def qv_scaled_costs(base: int, qual: torch.Tensor) -> torch.Tensor:
+    """QV-scaled penalty, ``max(1, (base * clip(q, 4, 30) + 7) // 15)``
+    (floor division): phred 15 gives ``base``, 30 and above twice it, a
+    noisy base a cheap one (QualityValueScoreFunction.h:65,80-84)."""
+    qv = torch.clamp(qual.to(torch.int32), 4, 30)
+    return torch.clamp(torch.div(base * qv + 7, 15, rounding_mode="floor"), min=1)
+
+
+def qual_mode(qual: torch.Tensor | None) -> str:
+    """'none', 'single' (uint8 stream) or 'dual' (int16 bits of uint16)."""
+    if qual is None:
+        return "none"
+    if qual.dtype == torch.uint8:
+        return "single"
+    if qual.dtype == torch.int16:
+        return "dual"
+    raise ValueError(
+        f"qual: expected uint8 (single stream) or int16 holding uint16 bits "
+        f"(dual stream), got {qual.dtype}"
+    )
+
+
 def _shift(x: torch.Tensor, d: int, fill: int) -> torch.Tensor:
     """Value at band index w + d (d in {-1, 0, 1}); ``fill`` off the band."""
     if d == 0:
@@ -91,7 +122,7 @@ def banded_align_plain(
     tlo: torch.Tensor,      # (I,) int32 valid target range start (local)
     thi: torch.Tensor,      # (I,) int32 valid target range end (local)
     qoff: torch.Tensor,     # (S,) int32 shared band offsets
-    qual: torch.Tensor | None = None,
+    qual: torch.Tensor | None = None,  # (I, L) uint8, or int16 (dual)
     *,
     scores: AlignScores = AlignScores(),
     with_traceback: bool = False,
@@ -100,9 +131,8 @@ def banded_align_plain(
 ) -> BandedResult:
     """The unguided banded DP, step by step, on whatever device the inputs
     live on. Bit-identical to ``blasr_tpu.ops.banded_align.banded_align``
-    for a shared ``qoff``, no quality values and local scoring."""
-    if qual is not None:
-        raise NotImplementedError("quality-scaled DP is not ported yet")
+    for a shared ``qoff`` and local scoring."""
+    mode = qual_mode(qual)
     if qoff.dim() != 1:
         raise NotImplementedError("per-item (guided) band schedules are not ported yet")
     if global_q:
@@ -122,6 +152,10 @@ def banded_align_plain(
     tpad = torch.full((I, Tp), 5, dtype=torch.int8, device=dev)
     tpad[:, W : W + T] = target.to(torch.int8)
     trev = torch.flip(tpad, dims=[1]).contiguous()
+    if mode != "none":
+        neutral = QV_NEUTRAL_DUAL if mode == "dual" else QV_NEUTRAL
+        quext = torch.full((I, L + W), neutral, dtype=torch.int32, device=dev)
+        quext[:, :L] = qual.to(torch.int32) & 0xFFFF   # the unsigned value
 
     qo_list = [int(v) for v in qoff.tolist()]
     w_ar = torch.arange(W, dtype=i32, device=dev)[None, :]
@@ -160,6 +194,13 @@ def banded_align_plain(
         # occurs where every cell of the step is outside the target)
         ts = min(max((Tp - 1 - W) - (a - qo), 0), Tp - W)
         twin = trev[:, ts : ts + W]
+        if mode == "none":
+            x_cell, ins_cell = x_sc, ins_sc
+        else:
+            quwin = quext[:, qo : qo + W]
+            lo, hi = (quwin & 255, quwin >> 8) if mode == "dual" else (quwin, quwin)
+            x_cell = qv_scaled_costs(x_sc, lo)
+            ins_cell = qv_scaled_costs(ins_sc, hi)
 
         q_pos = qo + w_ar
         t_pos = a - q_pos
@@ -168,7 +209,7 @@ def banded_align_plain(
         eq = (qwin == twin) & (qwin < 4)
         anyn = (qwin >= 4) | (twin >= 4)
         sub = torch.where(
-            eq, m_sc, torch.where(anyn, n_sc, x_sc)
+            eq, m_sc, torch.where(anyn, n_sc, x_cell)
         ).to(i32)
 
         H1_up = _shift(H1, s1 - 1, INF)
@@ -191,7 +232,7 @@ def banded_align_plain(
         h = torch.clamp(H2_diag, max=0) + sub
         src = torch.where(diag_fresh, SRC_DIAG_START, SRC_DIAG).to(i32)
         for val, code in (
-            (H1_up + ins_sc, SRC_UP),
+            (H1_up + ins_cell, SRC_UP),
             (H1_left + del_sc, SRC_LEFT),
             (E_new, SRC_E),
             (F_new, SRC_F),

@@ -4,7 +4,10 @@
 hand-written kernel (one thread block per item, one thread per band cell,
 the S anti-diagonal steps looped inside the block) or raises; on CPU
 tensors it runs the plain version, ``ops/banded_align.banded_align_plain``,
-which defines the result bit for bit.
+which defines the result bit for bit. The quality mode follows ``qual``'s
+dtype (``banded_align.qual_mode``): none, single (uint8) or dual (int16
+holding the uint16 bits). ``launches_by_shape[(W, mode)]`` counts the
+kernel's launches per band width and quality mode.
 """
 
 from __future__ import annotations
@@ -16,9 +19,11 @@ from blasr_tpu_torch.ops.banded_align import (
     AlignScores,
     BandedResult,
     banded_align_plain,
+    qual_mode,
 )
 
-BAND_WIDTHS = (32, 64, 128, 256)  # the kernel's template instances
+BAND_WIDTHS = (32, 64, 128, 256)     # the kernel's template instances
+QUAL_MODES = ("none", "single", "dual")  # and its quality modes, in C order
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
@@ -36,7 +41,7 @@ def banded_align(
     tlo: torch.Tensor,      # (I,) int32
     thi: torch.Tensor,      # (I,) int32
     qoff: torch.Tensor,     # (S,) int32 shared band schedule
-    qual: torch.Tensor | None = None,
+    qual: torch.Tensor | None = None,  # (I, L) uint8, or int16 (dual)
     *,
     scores: AlignScores = AlignScores(),
     with_traceback: bool = False,
@@ -47,8 +52,7 @@ def banded_align(
             query, qlen, target, tlo, thi, qoff, qual,
             scores=scores, with_traceback=with_traceback, band_width=band_width,
         )
-    if qual is not None:
-        raise NotImplementedError("quality-scaled DP is not ported yet")
+    mode = qual_mode(qual)
     W = band_width
     if W not in BAND_WIDTHS:
         raise ValueError(f"band_width {W} not in {BAND_WIDTHS}")
@@ -61,9 +65,12 @@ def banded_align(
     _check("tlo", tlo, torch.int32, (I,))
     _check("thi", thi, torch.int32, (I,))
     _check("qoff", qoff, torch.int32, (S,))
+    tensors = [("qlen", qlen), ("target", target), ("tlo", tlo), ("thi", thi), ("qoff", qoff)]
+    if qual is not None:
+        _check("qual", qual, qual.dtype, (I, L))
+        tensors.append(("qual", qual))
     dev = query.device
-    for name, t in (("qlen", qlen), ("target", target), ("tlo", tlo),
-                    ("thi", thi), ("qoff", qoff)):
+    for name, t in tensors:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, query on {dev}")
     best = torch.empty((3, I), dtype=torch.int32, device=dev)
@@ -77,6 +84,7 @@ def banded_align(
     err = lib.banded_dp_launch(
         query.data_ptr(), qlen.data_ptr(), target.data_ptr(),
         tlo.data_ptr(), thi.data_ptr(), qoff.data_ptr(),
+        qual.data_ptr() if qual is not None else None, QUAL_MODES.index(mode),
         best.data_ptr(), arrows.data_ptr() if with_traceback else None,
         I, L, T, S, W,
         scores.match, scores.mismatch, scores.n_score,
@@ -84,11 +92,11 @@ def banded_align(
         scores.affine_open, scores.affine_extend,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, f"banded_dp (W={W})")
+    _build.check(err, f"banded_dp (W={W}, quality {mode})")
     banded_align.launches += 1
-    banded_align.launches_by_width[W] += 1
+    banded_align.launches_by_shape[(W, mode)] += 1
     return BandedResult(best[0], best[1], best[2], arrows)
 
 
 banded_align.launches = 0
-banded_align.launches_by_width = dict.fromkeys(BAND_WIDTHS, 0)
+banded_align.launches_by_shape = {(w, m): 0 for w in BAND_WIDTHS for m in QUAL_MODES}

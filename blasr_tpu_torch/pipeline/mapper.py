@@ -1,10 +1,11 @@
 """Per-batch mapping step on the device.
 
 Port of ``blasr_tpu.pipeline.mapper`` for the suffix-array index with the
-direct 4^k tables, no quality values and no guided bands. One batch of
-padded reads goes through, in order:
+direct 4^k tables, with or without quality values, and no guided bands.
+One batch of padded reads goes through, in order:
 
-  1. reverse complements appended -> (2B, L) strand-expanded batch
+  1. reverse complements appended -> (2B, L) strand-expanded batch (and
+     the quality rows reversed, when the batch carries them)
   2. anchors through the direct count tables          (ops/anchors.py)
   3. candidate windows per read-strand                 (ops/candidates.py)
   4. chain evidence, admission, the top CD windows per read across strands
@@ -28,12 +29,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from blasr_tpu.index.artifacts import GenomeIndex
-from blasr_tpu.params import MappingParams
+from blasr_tpu_torch.index.artifacts import GenomeIndex
 from blasr_tpu_torch.ops.anchors import find_anchors, topk_desc
 from blasr_tpu_torch.ops.banded_align import (
     QOFF_NUM_HALF,
     QOFF_SHIFT,
+    QV_NEUTRAL,
+    QV_NEUTRAL_DUAL,
     AlignScores,
     make_qoff_num,
 )
@@ -51,6 +53,7 @@ from blasr_tpu_torch.ops.traceback_device import (
     packed_width,
     walk_arrows_device,
 )
+from blasr_tpu_torch.params import MappingParams
 
 I32 = torch.int32
 _U32 = 0xFFFFFFFF
@@ -284,6 +287,17 @@ def _revcomp_rows(codes: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.where(ar < lengths[:, None], out, torch.tensor(4, dtype=torch.uint8, device=dev))
 
 
+def _reverse_qual_rows(qual: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Quality rows of the reverse-complement strand: each read's values
+    reversed (not complemented), left-aligned, the neutral value in the
+    pad columns."""
+    L = qual.shape[1]
+    idx = lengths.to(I32)[:, None] - 1 - torch.arange(L, dtype=I32, device=qual.device)[None, :]
+    rev = torch.gather(qual, 1, torch.clamp(idx, 0, L - 1).long())
+    neutral = QV_NEUTRAL_DUAL if qual.dtype == torch.int16 else QV_NEUTRAL
+    return torch.where(idx >= 0, rev, torch.full_like(rev, neutral))
+
+
 def _nanmedian(x: torch.Tensor) -> torch.Tensor:
     """``jnp.nanmedian`` of a 1-d float32 tensor: the midpoint of the two
     middle non-NaN values (``torch.nanmedian`` returns the lower one);
@@ -325,6 +339,7 @@ def map_batch_impl(
     lengths: torch.Tensor,        # (B,) int32
     di: DeviceIndex,
     params: MappingParams,
+    qual: torch.Tensor | None = None,  # (B, L) uint8, or int16 (dual)
     clock: StageClock | None = None,
 ) -> MapBatchResult:
     if params.pval_type not in (0, 1):
@@ -353,6 +368,9 @@ def map_batch_impl(
     rc = _revcomp_rows(codes, lengths)
     reads2 = torch.cat([codes, rc], dim=0)                    # (2B, L)
     lens2 = torch.cat([lengths, lengths], dim=0)
+    qual2 = None
+    if qual is not None:
+        qual2 = torch.cat([qual, _reverse_qual_rows(qual, lengths)], dim=0)
 
     # ---- anchoring ----
     sa_valid, ctab16, lut_full, lut_valid = di.arrays
@@ -487,12 +505,13 @@ def map_batch_impl(
     else:
         qitems = reads2[row.long()]
     qlens = lens2[row.long()].contiguous()
+    quitems = qual2[row.long()].contiguous() if qual2 is not None else None
 
     mark("setup")
 
     # ---- one DP pass with arrows over every candidate ----
     res1 = banded_align(
-        qitems.contiguous(), qlens, tcodes.contiguous(), tlo, thi, qoff,
+        qitems.contiguous(), qlens, tcodes.contiguous(), tlo, thi, qoff, quitems,
         scores=scores_cfg, with_traceback=True, band_width=W,
     )
     cscore = torch.where(cvalid, res1.score, 0)
@@ -618,10 +637,11 @@ def map_batch_impl(
 
 def map_batch_wire(
     codes: torch.Tensor, lengths: torch.Tensor, di: DeviceIndex,
-    params: MappingParams, clock: StageClock | None = None,
+    params: MappingParams, qual: torch.Tensor | None = None,
+    clock: StageClock | None = None,
 ) -> torch.Tensor:
     """``map_batch_impl`` flattened to one uint8 buffer on the device."""
-    res = map_batch_impl(codes, lengths, di, params, clock)
+    res = map_batch_impl(codes, lengths, di, params, qual, clock)
     return torch.cat([
         res.sel_ints.contiguous().view(torch.uint8).reshape(-1),
         res.moves_packed.reshape(-1),
@@ -653,12 +673,20 @@ class Mapper:
     def map_batch(
         self, codes: np.ndarray, lengths: np.ndarray, qual: np.ndarray | None = None
     ) -> WireResult:
+        """Map one padded batch. ``qual`` is the batch's phred rows: uint8,
+        or uint16 for the dual stream (``io.batching.batch_reads``); it is
+        dropped when the params ignore qualities."""
         p = self.params
-        if qual is not None and not p.ignore_qualities:
-            raise NotImplementedError("quality-aware mapping is not ported yet")
         codes_d = torch.from_numpy(np.ascontiguousarray(codes)).to(self.device)
         lengths_d = torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(self.device)
-        wire = map_batch_wire(codes_d, lengths_d, self.device_index, p, self.clock)
+        qual_d = None
+        if qual is not None and not p.ignore_qualities:
+            if qual.dtype == np.uint16:
+                qual = qual.view(np.int16)         # the dual stream's bits
+            elif qual.dtype != np.uint8:
+                raise ValueError(f"qual: expected uint8 or uint16, got {qual.dtype}")
+            qual_d = torch.from_numpy(np.ascontiguousarray(qual)).to(self.device)
+        wire = map_batch_wire(codes_d, lengths_d, self.device_index, p, qual_d, self.clock)
         B, L = codes.shape
         S = L + p.target_pad + L - 1
         return WireResult(

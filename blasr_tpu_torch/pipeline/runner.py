@@ -22,9 +22,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from blasr_tpu.index.artifacts import GenomeIndex
-from blasr_tpu.io.batching import Read, ReadBatch, batch_reads
-from blasr_tpu.params import MappingParams
+from blasr_tpu_torch.index.artifacts import GenomeIndex
+from blasr_tpu_torch.io.batching import Read, ReadBatch, batch_reads
+from blasr_tpu_torch.params import MappingParams
 from blasr_tpu_torch.pipeline.mapper import (
     Mapper,
     StageClock,

@@ -10,19 +10,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from blasr_tpu_torch.native import unpack_moves
+
 OP_M, OP_I, OP_D = 1, 2, 3
-
-
-def unpack_moves(packed_row: np.ndarray, nops: int) -> np.ndarray:
-    """One packed move string -> START->END op order (uint8)."""
-    from blasr_tpu import native
-
-    out = native.unpack_moves(packed_row, nops)
-    if out is not None:
-        return out
-    b = packed_row[:, None] >> np.array([0, 2, 4, 6], np.uint8)[None, :]
-    ops_rev = (b & 3).reshape(-1)[:nops]
-    return ops_rev[::-1].copy()
 
 
 class AlignmentPath:

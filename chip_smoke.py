@@ -5,27 +5,39 @@
 
 Phases, each of which must pass:
   1. the card's name and power limit, torch and CUDA versions, and the
-     build of the three CUDA kernels from blasr_tpu_torch/csrc/;
-  2. each kernel against its plain PyTorch version on the card, bit for
+     build of the CUDA kernels and the C++ host helpers from
+     blasr_tpu_torch/csrc/ (one compiler per source, all at once);
+  2. the corpora under benchdata/: the 4.6 Mb simulated genome with its
+     k=14 index, the 2000-read FASTA bench corpus and the 2000-read CLR
+     FASTQ corpus (published PacBio CLR error model, quality values);
+  3. each kernel against its plain PyTorch version on the card, bit for
      bit, at the main path's shapes: the banded DP at W = 32, 64, 128, 256
-     with I = 512 items and buckets L = 1024 and 3328 on simulated read
-     windows; the span and row gathers at the bench shapes;
-  3. the bench corpus (4.6 Mb simulated genome, 2000 reads) under
-     benchdata/, its k=14 index, and the port's run_mapping on the card at
-     the bench operating point: one warm-up run, one timed run with every
-     kernel launch counter reset just before it, one run with the
-     per-stage clock;
-  4. the checks: accuracy_true_locus >= 0.98, every kernel launched in
-     the timed run, the DP kernel run at W >= 128; then the user's CLI on
-     256 reads and a torch.profiler trace of one batch.
+     with I = 512 items and buckets L = 1024 and 3328, without quality
+     values on simulated read windows and in both quality modes (single
+     uint8, dual uint16 with bytes >= 128) on CLR reads; the span and row
+     gathers at the bench shapes; each with its CUDA-event time, its bound
+     and, where one PyTorch call computes the same function, that call's
+     time;
+  4. the FASTA bench corpus through run_mapping on the card at the bench
+     operating point (warm-up, timed runs with every kernel launch counter
+     reset just before the first, a per-stage clock run), then the user's
+     CLI on 256 reads and a torch.profiler trace of one batch;
+  5. the CLR FASTQ corpus through run_mapping: warm-up, three timed runs,
+     the per-stage clock; accuracy within 0.01 of the JAX package's CPU
+     figure on the same corpus; the single-quality DP kernel launched at
+     W = 32 and at W >= 128 (band escalation);
+  6. 256 CLR reads written as SAM with iq/sq tracks through the user's CLI:
+     the same -m 4 lines as run_mapping in this process, and the
+     dual-stream DP kernel launched in both.
 The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}. Any
-failure raises and the exit code is not 0. Needs one CUDA card.
+error, times and bound; the last line is {"ok": true, "device": {...}}.
+Any failure raises and the exit code is not 0. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -36,12 +48,30 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DP_SHAPES = [(W, L) for L in (1024, 3328) for W in (32, 64, 128, 256)]
 DP_ITEMS = 512          # B = 256 reads x 2 DP windows
 MAIN_DP_SHAPE = (32, 1024)
-MIN_ACCURACY = 0.98
+MIN_ACCURACY = 0.98     # FASTA bench corpus: the JAX package's steady state is 0.982
+# accuracy_true_locus of the JAX package on the whole CLR FASTQ corpus, on
+# the CPU (tools/jax_clr_accuracy.py), and the corpus it was measured on
+JAX_CLR_ACCURACY = 0.966
+CLR_ACCURACY_SLACK = 0.01
+CLR_FASTQ_MD5 = "897fb8881c92d3fc33874e9a065602f7"
+# H100 SXM peaks: HBM 3.35 TB/s; INT32 ALU 132 SMs x 64 lanes x 1.98 GHz
+# (Hopper architecture white paper), the rate of the DP's integer work
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations per DP cell: the elementwise operations of one cell
+# of the plain version's step (ops/banded_align.py), the quality cost
+# formula (clip, multiply, add, divide, max for two costs) in the quality
+# modes and the byte split in the dual mode
+DP_OPS_PER_CELL = {"none": 79, "single": 92, "dual": 94}
+QUAL_MODES = ("none", "single", "dual")
 KERNEL_META = {
     "banded_dp": ("blasr_tpu_torch/csrc/banded_dp.cu", "blasr_tpu/ops/banded_pallas.py:716"),
     "gather_spans": ("blasr_tpu_torch/csrc/gather.cu", "blasr_tpu/ops/dma_gather.py:38"),
     "gather_rows": ("blasr_tpu_torch/csrc/gather.cu", "blasr_tpu/ops/dma_gather.py:127"),
 }
+CLI_FLAGS = ["-m", "4", "-device", "cuda", "-minMatch", "14", "-nCandidates", "4",
+             "-dpCandidates", "2", "-anchorStride", "4", "-maxAnchorsPerRead", "128",
+             "-batchSize", "256", "-maxReadLen", "3328", "-bandSize", "16"]
 
 
 def log(msg: str) -> None:
@@ -65,65 +95,111 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def dp_problem(genome, W: int, L: int, seed: int):
-    """The DP inputs of one bucket on the card: simulated reads and their
-    true-locus windows, and the drift-slope band schedule."""
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least time in ms, what binds it) from the bytes moved and the
+    integer operations done."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dp_bound(I: int, L: int, T: int, W: int, mode: str, traceback: bool = True):
+    S = L + T - 1
+    qual_bytes = {"none": 0, "single": 1, "dual": 2}[mode] * I * L
+    n_bytes = I * L + I * T + 3 * 4 * I + 4 * S + qual_bytes + 3 * 4 * I
+    if traceback:
+        n_bytes += 2 * S * I * W
+    return bound(n_bytes, DP_OPS_PER_CELL[mode] * S * I * W)
+
+
+def dp_inputs(windows, W: int, L: int, mode: str):
+    """The DP call's tensors on the card for one bucket: reads at their true
+    loci, the drift-slope band schedule, and the quality stream of
+    ``mode`` (dual: sq = the read's phred, iq = 9x it mod 256, so the high
+    byte is >= 128 wherever the phred is 15 or more, about a tenth of the
+    cells; every 7th cell's low byte at 255)."""
+    import numpy as np
     import torch
 
-    from blasr_tpu_torch.bench import simulated_windows
     from blasr_tpu_torch.ops.banded_align import make_qoff_num
 
     pad2 = 128
-    Q, qlen, Tg = simulated_windows(genome, DP_ITEMS, L, pad2=pad2, seed=seed)
+    Q, qlen, Tg, qual = windows
     T = Tg.shape[1]
     dev = torch.device("cuda")
-    # the ins-heavy drift of the simulated error model: slope about -0.04
+    # the ins-heavy drift of the simulated error models: slope about -0.04
     num = round(65536 / 1.96)
-    return (
+    args = [
         torch.from_numpy(Q).to(dev),
         torch.from_numpy(qlen).to(dev),
         torch.from_numpy(Tg).to(dev),
         torch.zeros(DP_ITEMS, dtype=torch.int32, device=dev),
         torch.full((DP_ITEMS,), T, dtype=torch.int32, device=dev),
         make_qoff_num(L, T, W, pad2, num, device=dev),
-    )
+    ]
+    if mode == "single":
+        args.append(torch.from_numpy(qual).to(dev))
+    elif mode == "dual":
+        sq = qual.astype(np.uint16)
+        sq.reshape(-1)[::7] = 255
+        iq = (qual.astype(np.uint16) * 9) % 256
+        if not (iq >= 128).any():
+            raise AssertionError("the dual stream's high byte never reaches 128")
+        args.append(torch.from_numpy((sq | (iq << 8)).view(np.int16)).to(dev))
+    return args
 
 
-def check_dp(genome) -> tuple[list, float]:
+def check_dp(genome, clr_reads) -> list:
+    """The DP kernel against its plain version at every W and L, without
+    quality values and in both quality modes."""
     import torch
 
+    from blasr_tpu_torch import bench
     from blasr_tpu_torch.ops.banded_align import banded_align_plain
     from blasr_tpu_torch.ops.banded_cuda import banded_align
 
-    rows, worst = [], 0
+    rows = []
+    windows = {}
     for si, (W, L) in enumerate(DP_SHAPES):
-        args = dp_problem(genome, W, L, seed=100 + si)
-        got = banded_align(*args, with_traceback=True, band_width=W)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = banded_align_plain(*args, with_traceback=True, band_width=W)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = 0
-        for name, a, b in zip(("score", "best_a", "best_w"), got[:3], ref[:3]):
-            err = max(err, int((a.long() - b.long()).abs().max()))
-        ga = got.arrows.view(torch.int16).to(torch.int32) & 0xFFFF
-        ra = ref.arrows.view(torch.int16).to(torch.int32) & 0xFFFF
-        err = max(err, int((ga - ra).abs().max()))
-        n_aligned = int((ref.score < 0).sum())
-        del ga, ra, ref, got
-        ms = cuda_ms(lambda: banded_align(*args, with_traceback=True, band_width=W), reps=3)
-        rows.append({"W": W, "L": L, "I": DP_ITEMS, "S": int(args[5].shape[0]),
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "items_aligned": n_aligned})
-        log(f"dp W={W} L={L} I={DP_ITEMS}: max_abs_err={err} kernel {ms:.3f} ms "
-            f"plain {plain_ms:.1f} ms ({n_aligned} items aligned)")
-        if err != 0:
-            raise AssertionError(f"banded_dp kernel disagrees with the plain version at W={W} L={L}")
-        if n_aligned < DP_ITEMS // 2:
-            raise AssertionError(f"only {n_aligned}/{DP_ITEMS} windows aligned at W={W} L={L}")
-        worst = max(worst, err)
-    return rows, worst
+        if L not in windows:
+            plain = bench.simulated_windows(genome, DP_ITEMS, L, pad2=128, seed=100 + si)
+            windows[L] = {
+                "none": (*plain, None),
+                "clr": bench.true_locus_windows(genome, clr_reads[:DP_ITEMS], L, pad2=128),
+            }
+        for mode in QUAL_MODES:
+            args = dp_inputs(windows[L]["none" if mode == "none" else "clr"], W, L, mode)
+            got = banded_align(*args, with_traceback=True, band_width=W)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = banded_align_plain(*args, with_traceback=True, band_width=W)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = 0
+            for a, b in zip(got[:3], ref[:3]):
+                err = max(err, int((a.long() - b.long()).abs().max()))
+            ga = got.arrows.view(torch.int16).to(torch.int32) & 0xFFFF
+            ra = ref.arrows.view(torch.int16).to(torch.int32) & 0xFFFF
+            err = max(err, int((ga - ra).abs().max()))
+            n_aligned = int((ref.score < 0).sum())
+            del ga, ra, ref, got
+            ms = cuda_ms(lambda: banded_align(*args, with_traceback=True, band_width=W), reps=3)
+            T = args[2].shape[1]
+            b_ms, b_by = dp_bound(DP_ITEMS, L, T, W, mode)
+            rows.append({"W": W, "L": L, "I": DP_ITEMS, "S": int(args[5].shape[0]),
+                         "mode": mode, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "items_aligned": n_aligned})
+            log(f"dp W={W} L={L} I={DP_ITEMS} quality {mode}: max_abs_err={err} kernel "
+                f"{ms:.3f} ms plain {plain_ms:.1f} ms bound {b_ms:.4f} ms ({b_by}); "
+                f"{n_aligned} items aligned")
+            if err != 0:
+                raise AssertionError(
+                    f"banded_dp kernel disagrees with the plain version at W={W} L={L} "
+                    f"quality {mode}")
+            if n_aligned < DP_ITEMS // 2:
+                raise AssertionError(
+                    f"only {n_aligned}/{DP_ITEMS} windows aligned at W={W} L={L} quality {mode}")
+    return rows
 
 
 def check_gathers(genome_pad) -> dict:
@@ -147,9 +223,15 @@ def check_gathers(genome_pad) -> dict:
         err = int((got.long() - ref.long()).abs().max())
         ms = cuda_ms(lambda: gather_spans(genome_pad, st, span), reps=20)
         pms = cuda_ms(lambda: gather_spans_plain(genome_pad, st, span), reps=20)
+        # one PyTorch call on a precomputed clipped index
+        idx = torch.clamp(st.long()[:, None] + torch.arange(span, device=dev)[None, :], 0, N - 1)
+        lms = cuda_ms(lambda: genome_pad[idx], reps=20)
+        b_ms, b_by = bound(2 * 4 * DP_ITEMS * span + 4 * DP_ITEMS, 0)
         out["gather_spans"].append({"I": DP_ITEMS, "span": span, "max_abs_err": err,
-                                    "ms": ms, "plain_ms": pms})
-        log(f"gather_spans I={DP_ITEMS} span={span}: max_abs_err={err} kernel {ms:.4f} ms plain {pms:.4f} ms")
+                                    "ms": ms, "plain_ms": pms, "library_ms": lms,
+                                    "bound_ms": b_ms, "bound_by": b_by})
+        log(f"gather_spans I={DP_ITEMS} span={span}: max_abs_err={err} kernel {ms:.4f} ms "
+            f"plain {pms:.4f} ms index call {lms:.4f} ms bound {b_ms:.5f} ms")
         if err != 0:
             raise AssertionError("gather_spans kernel disagrees with the plain version")
     # fused anchor rows (2B, 2A) and packed query rows (2B, L/8)
@@ -162,57 +244,201 @@ def check_gathers(genome_pad) -> dict:
         err = int((got.long() - ref.long()).abs().max())
         ms = cuda_ms(lambda: gather_rows(src, rows), reps=20)
         pms = cuda_ms(lambda: gather_rows_plain(src, rows), reps=20)
+        rows_c = torch.clamp(rows.long(), 0, R - 1)
+        lms = cuda_ms(lambda: torch.index_select(src, 0, rows_c), reps=20)
+        b_ms, b_by = bound(2 * 4 * DP_ITEMS * Lr + 4 * DP_ITEMS, 0)
         out["gather_rows"].append({"I": DP_ITEMS, "R": R, "Lr": Lr, "max_abs_err": err,
-                                   "ms": ms, "plain_ms": pms})
-        log(f"gather_rows I={DP_ITEMS} R={R} Lr={Lr}: max_abs_err={err} kernel {ms:.4f} ms plain {pms:.4f} ms")
+                                   "ms": ms, "plain_ms": pms, "library_ms": lms,
+                                   "bound_ms": b_ms, "bound_by": b_by})
+        log(f"gather_rows I={DP_ITEMS} R={R} Lr={Lr}: max_abs_err={err} kernel {ms:.4f} ms "
+            f"plain {pms:.4f} ms index_select {lms:.4f} ms bound {b_ms:.5f} ms")
         if err != 0:
             raise AssertionError("gather_rows kernel disagrees with the plain version")
     return out
 
 
+def run_cli(reads_path: str, genome_fa: str, tag: str) -> tuple[list, dict, float]:
+    """The user's command line on the card, in its own process: (its m4
+    lines, its metrics JSON, seconds with the process start)."""
+    from blasr_tpu_torch.bench import BENCH_DIR
+
+    out_m4 = os.path.join(BENCH_DIR, f"{tag}.m4")
+    out_metrics = os.path.join(BENCH_DIR, f"{tag}.metrics.json")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "blasr_tpu_torch.cli.blasr", reads_path, genome_fa,
+         *CLI_FLAGS, "-out", out_m4, "-metrics", out_metrics],
+        cwd=HERE, capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    with open(out_m4) as f:
+        lines = f.read().splitlines()
+    with open(out_metrics) as f:
+        metrics = json.load(f)
+    return lines, metrics, seconds
+
+
+def cli_params(reads_path: str, genome_fa: str):
+    from blasr_tpu_torch.cli.blasr import build_parser, params_from_args
+
+    return params_from_args(build_parser().parse_args([reads_path, genome_fa, *CLI_FLAGS]))
+
+
 def check_cli(genome_fa: str, reads, index) -> dict:
-    """The user's command line on the card, in its own process, must print
-    the records that run_mapping gives in this process for the same flags.
-    The CLI keeps the reference's narrow_band_max of 1536, so reads above
-    it take the W = 128/256 band."""
+    """The CLI on 256 FASTA reads must print the records that run_mapping
+    gives in this process for the same flags. The CLI keeps the
+    reference's narrow_band_max of 1536, so reads above it take the
+    W = 128/256 band."""
     import torch
 
     from blasr_tpu_torch.bench import BENCH_DIR, write_reads
-    from blasr_tpu_torch.cli.blasr import build_parser, params_from_args
     from blasr_tpu_torch.ops.banded_cuda import banded_align
     from blasr_tpu_torch.output.m4 import format_m4
     from blasr_tpu_torch.pipeline.runner import run_mapping
 
     sub = reads[:256]
     reads_fa = os.path.join(BENCH_DIR, "reads_cli.fasta")
-    out_m4 = os.path.join(BENCH_DIR, "reads_cli.m4")
     write_reads(reads_fa, sub)
-    flags = ["-m", "4", "-device", "cuda", "-minMatch", "14", "-nCandidates", "4",
-             "-dpCandidates", "2", "-anchorStride", "4", "-maxAnchorsPerRead", "128",
-             "-batchSize", "256", "-maxReadLen", "3328", "-bandSize", "16"]
-    t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, "-m", "blasr_tpu_torch.cli.blasr", reads_fa, genome_fa,
-         *flags, "-out", out_m4],
-        cwd=HERE, capture_output=True, text=True, timeout=600,
-    )
-    cli_s = time.time() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
-    with open(out_m4) as f:
-        cli_lines = f.read().splitlines()
-    params = params_from_args(build_parser().parse_args([reads_fa, genome_fa, *flags]))
-    w0 = banded_align.launches_by_width[128] + banded_align.launches_by_width[256]
-    recs, _ = run_mapping(index, sub, params, device="cuda")
-    wide = banded_align.launches_by_width[128] + banded_align.launches_by_width[256] - w0
+    cli_lines, _, cli_s = run_cli(reads_fa, genome_fa, "reads_cli")
+    by_shape = banded_align.launches_by_shape
+
+    def wide():
+        return sum(by_shape[(w, "none")] for w in (128, 256))
+
+    w0 = wide()
+    recs, _ = run_mapping(index, sub, cli_params(reads_fa, genome_fa), device="cuda")
+    n_wide = wide() - w0
     torch.cuda.synchronize()
-    lines = [format_m4(r) for r in recs]
-    if cli_lines != lines:
+    if cli_lines != [format_m4(r) for r in recs]:
         raise AssertionError("CLI output differs from run_mapping on the same reads")
-    log(f"CLI on the card: {len(sub)} reads -> {len(cli_lines)} m4 lines in {cli_s:.1f} s "
-        f"(process included), equal to run_mapping; DP kernel W>=128 launches {wide}")
+    log(f"CLI on the card: {len(sub)} FASTA reads -> {len(cli_lines)} m4 lines in {cli_s:.1f} s "
+        f"(process included), equal to run_mapping; DP kernel W>=128 launches {n_wide}")
     return {"reads": len(sub), "lines": len(cli_lines), "seconds": cli_s,
-            "dp_wide_launches": wide}
+            "dp_wide_launches": n_wide}
+
+
+def write_sam_with_qvs(path: str, reads) -> None:
+    """The reads as unaligned SAM records with iq/sq tracks: sq is the
+    read's phred, iq 4 lower (at least 4); odd reads are stored reverse
+    complemented with FLAG 16 and their tracks reversed; every eighth read
+    carries no iq track (a mixed dual batch)."""
+    import numpy as np
+
+    from blasr_tpu_torch.core.encode import codes_to_seq, revcomp_codes
+
+    def phred(a):
+        return (np.asarray(a, np.uint8) + 33).tobytes().decode()
+
+    with open(path, "w") as f:
+        f.write("@HD\tVN:1.5\tSO:unknown\n")
+        for i, r in enumerate(reads):
+            codes, sq = r.codes, r.qual
+            iq = np.maximum(sq.astype(np.int16) - 4, 4).astype(np.uint8)
+            flag = 4
+            if i % 2:
+                codes, sq, iq, flag = revcomp_codes(codes), sq[::-1], iq[::-1], 20
+            tags = [f"sq:Z:{phred(sq)}"]
+            if i % 8 != 3:
+                tags.append(f"iq:Z:{phred(iq)}")
+            f.write("\t".join([r.name, str(flag), "*", "0", "0", "*", "*", "0", "0",
+                               codes_to_seq(codes), phred(sq), *tags]) + "\n")
+
+
+def check_cli_sam(genome_fa: str, clr_reads, index) -> dict:
+    """256 CLR reads as SAM with iq/sq tracks: the reader restores each
+    read's orientation, the CLI prints the same -m 4 lines as run_mapping
+    in this process, and both launch the dual-stream DP kernel."""
+    import numpy as np
+    import torch
+
+    from blasr_tpu_torch.bench import BENCH_DIR
+    from blasr_tpu_torch.io.batching import read_records
+    from blasr_tpu_torch.ops import dp_launch_counts, launch_counts, reset_launch_counts
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    sub = clr_reads[:256]
+    sam = os.path.join(BENCH_DIR, "reads_clr_cli.sam")
+    write_sam_with_qvs(sam, sub)
+    back = read_records(sam)
+    if [r.name for r in back] != [r.name for r in sub] or not all(
+            np.array_equal(a.codes, b.codes) and np.array_equal(a.qvs["sq"], b.qual)
+            for a, b in zip(back, sub)):
+        raise AssertionError("SAM reads do not come back in their original orientation")
+    cli_lines, cli_metrics, cli_s = run_cli(sam, genome_fa, "reads_clr_cli")
+    reset_launch_counts()
+    recs, _ = run_mapping(index, back, cli_params(sam, genome_fa), device="cuda")
+    torch.cuda.synchronize()
+    counts, by_shape = launch_counts(), dp_launch_counts()
+    if cli_lines != [format_m4(r) for r in recs]:
+        raise AssertionError("CLI output on the SAM reads differs from run_mapping")
+    dual_here = sum(n for k, n in by_shape.items() if k.endswith("/dual"))
+    dual_cli = sum(n for k, n in cli_metrics["dpLaunches"].items() if k.endswith("/dual"))
+    if dual_here == 0 or dual_cli == 0:
+        raise AssertionError(f"dual-stream DP kernel not launched: here {by_shape}, "
+                             f"CLI {cli_metrics['dpLaunches']}")
+    log(f"CLI on the card: {len(sub)} SAM reads with iq/sq -> {len(cli_lines)} m4 lines in "
+        f"{cli_s:.1f} s (process included), equal to run_mapping; DP launches in the CLI "
+        f"{cli_metrics['dpLaunches']}, in run_mapping {by_shape}")
+    return {"reads": len(sub), "lines": len(cli_lines), "seconds": cli_s,
+            "cli_dp_launches": cli_metrics["dpLaunches"], "dp_launches": by_shape,
+            "launches": counts}
+
+
+def map_corpus(index, reads, params, n_timed: int) -> dict:
+    """One warm-up run, then ``n_timed`` timed runs (every launch counter
+    reset just before the first, read just after it), then one run with
+    the per-stage clock."""
+    import torch
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.ops import dp_launch_counts, launch_counts, reset_launch_counts
+    from blasr_tpu_torch.pipeline.mapper import StageClock
+    from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
+
+    t0 = time.time()
+    run_mapping(index, reads, params, device="cuda")
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    walls = []
+    for k in range(n_timed):
+        met = MappingMetrics()
+        if k == 0:
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        recs, unm = run_mapping(index, reads, params, device="cuda", metrics=met)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        if k == 0:
+            counts, by_shape = launch_counts(), dp_launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            records, unmapped, met0 = recs, unm, met
+    clock = StageClock(torch.device("cuda"))
+    t0 = time.time()
+    run_mapping(index, reads, params, device="cuda", clock=clock)
+    clocked_s = time.time() - t0
+    stage = dict(clock.seconds)
+    total_stage = sum(stage.values())
+    acc = bench.accuracy_true_locus(records, reads)
+    log(f"  {len(reads)} reads: reads/s of the timed runs "
+        + ", ".join(f"{len(reads) / w:.1f}" for w in walls)
+        + f" (warm-up run {warm_s:.1f} s); records {len(records)}, unmapped {len(unmapped)}, "
+        f"escalated {met0.escalated_reads}; accuracy_true_locus {acc:.4f}")
+    log(f"  host split: dispatch {met0.dispatch_seconds:.3f} s wait {met0.wait_seconds:.3f} s "
+        f"finalize {met0.finalize_seconds:.3f} s; batches {met0.n_batches}; buckets {met0.buckets}")
+    log(f"  peak torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB")
+    log(f"  stage clock ({clocked_s:.2f} s run): " + ", ".join(
+        f"{k} {v:.3f} s ({100 * v / max(total_stage, 1e-9):.1f}%)" for k, v in stage.items()))
+    log(f"  kernel launches in the first timed run: {counts}; DP by shape {by_shape}")
+    return {"reads": len(reads), "walls_s": walls, "warm_s": warm_s,
+            "reads_per_s": [len(reads) / w for w in walls], "accuracy_true_locus": acc,
+            "records": len(records), "unmapped": len(unmapped),
+            "escalated": met0.escalated_reads, "metrics": met0.to_dict(),
+            "stage_seconds": stage, "clocked_s": clocked_s, "peak_bytes": peak,
+            "launches": counts, "dp_launches": by_shape}
 
 
 def profile_batch(index, reads, params) -> dict:
@@ -257,12 +483,12 @@ def run(out_path: str | None) -> int:
         print("chip_smoke: run it from a checkout of the repository (blasr_tpu_torch/ missing)",
               file=sys.stderr)
         return 1
-    from blasr_tpu_torch import bench
-    from blasr_tpu_torch.ops import _build, launch_counts, reset_launch_counts
-    from blasr_tpu_torch.ops.banded_cuda import banded_align
-    from blasr_tpu_torch.pipeline.mapper import StageClock, make_device_index
-    from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
+    from blasr_tpu_torch import bench, native
+    from blasr_tpu_torch.io.batching import read_records
+    from blasr_tpu_torch.ops import _build
+    from blasr_tpu_torch.pipeline.mapper import make_device_index
 
+    t_start = time.time()
     # ---- phase 1: card, versions, build ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -273,20 +499,33 @@ def run(out_path: str | None) -> int:
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.time()
     _build.load_library()
-    log(f"kernel build {time.time() - t0:.1f} s (nvcc {_build.BUILD_SECONDS:.1f} s) -> "
-        f"{os.path.relpath(_build.library_path(), HERE)}")
+    log(f"kernel build {time.time() - t0:.1f} s (compilers {_build.BUILD_SECONDS:.1f} s, in "
+        f"parallel) -> " + ", ".join(
+            os.path.relpath(_build.library_path(s), HERE) for s in _build.CUDA_SOURCES))
+    index_path = ("C++ SA-IS (csrc/host_native.cpp, " + os.path.relpath(
+        _build.library_path(_build.HOST_SOURCE), HERE) + ")"
+        if native.available() else "numpy prefix doubling (no g++: the plain version)")
+    log(f"host helpers: {index_path}")
 
-    # ---- phase 3 set-up first: the corpus feeds phase 2's windows ----
+    # ---- phase 2: corpora and index ----
     t0 = time.time()
     genome_fa, reads_fa = bench.ensure_corpus()
+    reads_fq = bench.ensure_fastq_corpus()
+    with open(reads_fq, "rb") as f:
+        fq_md5 = hashlib.md5(f.read()).hexdigest()
+    if fq_md5 != CLR_FASTQ_MD5:
+        raise AssertionError(f"CLR FASTQ corpus md5 {fq_md5} != {CLR_FASTQ_MD5}: not the "
+                             "corpus of the JAX package's accuracy figure")
     index = bench.load_bench_index(genome_fa)
     reads = bench.load_reads(reads_fa)
+    clr_reads = read_records(reads_fq)
     params = bench.bench_params()
-    log(f"corpus + k=14 index {time.time() - t0:.1f} s: genome {index.genome_length} bp, "
-        f"{len(reads)} reads")
+    log(f"corpora + k=14 index {time.time() - t0:.1f} s (suffix array by {index_path}): "
+        f"genome {index.genome_length} bp, {len(reads)} FASTA reads, {len(clr_reads)} CLR "
+        f"FASTQ reads (md5 {fq_md5})")
 
-    # ---- phase 2: kernels against their plain versions ----
-    dp_rows, dp_err = check_dp(index.genome)
+    # ---- phase 3: kernels against their plain versions ----
+    dp_rows = check_dp(index.genome, clr_reads)
     t0 = time.time()
     di = make_device_index(index, params, "cuda")
     torch.cuda.synchronize()
@@ -294,86 +533,82 @@ def run(out_path: str | None) -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     g_rows = check_gathers(di.genome_pad)
 
-    # ---- phase 3: the port's main path on the card ----
-    t0 = time.time()
-    run_mapping(index, reads, params, device="cuda")
-    torch.cuda.synchronize()
-    warm_s = time.time() - t0
-    reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    met = MappingMetrics()
-    t0 = time.time()
-    records, unmapped = run_mapping(index, reads, params, device="cuda", metrics=met)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = launch_counts()
-    by_width = dict(banded_align.launches_by_width)
-    peak = torch.cuda.max_memory_allocated()
-    acc = bench.accuracy_true_locus(records, reads)
-    walls = [wall]
-    for _ in range(2):                      # run-to-run spread
-        t0 = time.time()
-        run_mapping(index, reads, params, device="cuda")
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-    clock = StageClock(torch.device("cuda"))
-    t0 = time.time()
-    run_mapping(index, reads, params, device="cuda", clock=clock)
-    clocked_s = time.time() - t0
-    stage = {k: round(v, 4) for k, v in clock.seconds.items()}
-    total_stage = sum(clock.seconds.values())
-    log(f"mapping: {len(reads)} reads in {wall:.3f} s = {len(reads) / wall:.1f} reads/s "
-        f"(warm-up run {warm_s:.1f} s); records {len(records)}, unmapped {len(unmapped)}, "
-        f"escalated {met.escalated_reads}; accuracy_true_locus {acc:.4f}")
-    log("reads/s of the three timed runs: " + ", ".join(f"{len(reads) / w:.1f}" for w in walls))
-    log(f"host split: dispatch {met.dispatch_seconds:.3f} s wait {met.wait_seconds:.3f} s "
-        f"finalize {met.finalize_seconds:.3f} s; batches {met.n_batches}; buckets {met.buckets}")
-    log(f"peak torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB")
-    log(f"stage clock ({clocked_s:.2f} s run): " + ", ".join(
-        f"{k} {v:.3f} s ({100 * v / max(total_stage, 1e-9):.1f}%)" for k, v in stage.items()))
-    log(f"kernel launches in the timed run: {counts}; DP by band width {by_width}")
-
+    # ---- phase 4: the FASTA bench corpus, the CLI, a profile ----
+    log("FASTA bench corpus through run_mapping on the card:")
+    fasta = map_corpus(index, reads, params, n_timed=3)
     cli = check_cli(genome_fa, reads, index)
-
-    # ---- phase 4: checks ----
-    if acc < MIN_ACCURACY:
-        raise AssertionError(f"accuracy_true_locus {acc:.4f} < {MIN_ACCURACY}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    if fasta["accuracy_true_locus"] < MIN_ACCURACY:
+        raise AssertionError(f"accuracy_true_locus {fasta['accuracy_true_locus']:.4f} < {MIN_ACCURACY}")
+    missing = [k for k, v in fasta["launches"].items() if v <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    wide_main = by_width[128] + by_width[256]
-    wide_phase2 = any(r["W"] >= 128 for r in dp_rows)
-    if wide_main == 0 and cli["dp_wide_launches"] == 0 and not wide_phase2:
-        raise AssertionError("the DP kernel never ran at W >= 128")
-    log(f"DP kernel at W>=128: {wide_main} launches in the timed run (escalation), "
-        f"{cli['dp_wide_launches']} in the CLI-parameter run, phase 2 covered W=128/256: "
-        f"{wide_phase2}")
+        raise AssertionError(f"kernels never launched on the FASTA path: {missing}")
+    prof = profile_batch(index, reads, params)
 
-    main_dp = next(r for r in dp_rows if (r["W"], r["L"]) == MAIN_DP_SHAPE)
-    spans0, rows0 = g_rows["gather_spans"][0], g_rows["gather_rows"][0]
+    # ---- phase 5: the CLR FASTQ corpus ----
+    log("CLR FASTQ corpus through run_mapping on the card:")
+    fastq = map_corpus(index, clr_reads, params, n_timed=3)
+    min_acc = JAX_CLR_ACCURACY - CLR_ACCURACY_SLACK
+    if fastq["accuracy_true_locus"] < min_acc:
+        raise AssertionError(f"CLR accuracy_true_locus {fastq['accuracy_true_locus']:.4f} < "
+                             f"{min_acc:.3f} (JAX package on the CPU: {JAX_CLR_ACCURACY})")
+    missing = [k for k, v in fastq["launches"].items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the FASTQ path: {missing}")
+    single = fastq["dp_launches"]
+    if single.get("W32/single", 0) == 0 or not any(
+            single.get(f"W{w}/single", 0) for w in (128, 256)):
+        raise AssertionError(f"single-quality DP kernel not run at W=32 and W>=128: {single}")
+    if any(not k.endswith("/single") for k in single):
+        raise AssertionError(f"the FASTQ path ran a DP mode other than single: {single}")
+    log(f"CLR accuracy {fastq['accuracy_true_locus']:.4f} >= {min_acc:.3f} (JAX package on "
+        f"the CPU {JAX_CLR_ACCURACY}); single-quality DP at W=32 and W>=128: {single}")
+
+    # ---- phase 6: the CLI on SAM reads with iq/sq tracks ----
+    sam = check_cli_sam(genome_fa, clr_reads, index)
+
+    # ---- the kernels line ----
+    def dp_row(mode):
+        return next(r for r in dp_rows if (r["W"], r["L"], r["mode"]) == (*MAIN_DP_SHAPE, mode))
+
+    dp_launches = {
+        "none": fasta["launches"]["banded_dp"],
+        "single": sum(fastq["dp_launches"].values()),
+        "dual": sum(n for k, n in sam["dp_launches"].items() if k.endswith("/dual")),
+    }
     kernels = []
-    for name, ref_row, err in (
-        ("banded_dp", main_dp, dp_err),
-        ("gather_spans", spans0, max(r["max_abs_err"] for r in g_rows["gather_spans"])),
-        ("gather_rows", rows0, max(r["max_abs_err"] for r in g_rows["gather_rows"])),
-    ):
+    for mode in QUAL_MODES:
+        row = dp_row(mode)
+        src, replaces = KERNEL_META["banded_dp"]
+        kernels.append({
+            "name": "banded_dp" if mode == "none" else f"banded_dp[qual={mode}]",
+            "route": "cuda", "source": src, "replaces": replaces,
+            "launches": dp_launches[mode],
+            "max_abs_err": max(r["max_abs_err"] for r in dp_rows if r["mode"] == mode),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        })
+    for name in ("gather_spans", "gather_rows"):
+        row = g_rows[name][0]
         src, replaces = KERNEL_META[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": err,
-            "ms": ref_row["ms"], "plain_ms": ref_row["plain_ms"],
+            "launches": fastq["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in g_rows[name]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
-    prof = profile_batch(index, reads, params)
+    if any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError(f"a kernel never ran on its path: {kernels}")
+    log(f"total {time.time() - t_start:.0f} s")
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
             json.dump({
                 "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-                "dp": dp_rows, "gathers": g_rows, "reads_per_s": len(reads) / wall,
-                "wall_s": wall, "warm_s": warm_s, "accuracy_true_locus": acc,
-                "metrics": met.to_dict(), "stage_seconds": stage,
-                "timed_walls_s": walls, "cli": cli, "profile": prof,
-                "peak_bytes": peak, "launches": counts, "dp_by_width": by_width,
+                "host_helpers": index_path, "dp": dp_rows, "gathers": g_rows,
+                "fasta": fasta, "cli": cli, "profile": prof, "fastq": fastq,
+                "cli_sam": sam, "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
+                "seconds": time.time() - t_start,
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

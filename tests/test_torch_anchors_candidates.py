@@ -22,6 +22,10 @@ from blasr_tpu_torch.pipeline import mapper as tmap
 
 from conftest import mutate_read
 
+# The suite runs in parallel worker processes: one intra-op thread each
+# keeps PyTorch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 K = 10
 
 

@@ -16,6 +16,10 @@ from blasr_tpu_torch.ops import banded_align as tba
 from blasr_tpu_torch.ops import traceback_device as ttb
 from blasr_tpu_torch.ops.banded_cuda import banded_align as dp_wrapper
 
+# The suite runs in parallel worker processes: one intra-op thread each
+# keeps PyTorch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 
 def _problem(seed, W, I=8, L=96, T=140, num=None, ragged=False):
     rng = np.random.default_rng(seed)
@@ -129,8 +133,8 @@ def test_score_only_and_make_qoff():
 def test_unported_modes_raise():
     Q, qlen, Tc, tlo, thi, qoff, _ = _problem(1, 32)
     args = _torch(Q, qlen, Tc, tlo, thi, qoff)
-    with pytest.raises(NotImplementedError):
-        dp_wrapper(*args, torch.from_numpy(Q), band_width=32)          # qualities
+    with pytest.raises(ValueError, match="qual"):
+        dp_wrapper(*args, torch.from_numpy(Q).int(), band_width=32)    # no quality mode
     with pytest.raises(NotImplementedError):
         dp_wrapper(*args[:5], args[5][:, None].repeat(1, 8), band_width=32)  # guided
     with pytest.raises(NotImplementedError):

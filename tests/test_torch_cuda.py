@@ -49,6 +49,31 @@ def test_banded_dp_kernel_matches_plain(dev, W):
     assert torch.equal(got.arrows.view(torch.int16).cpu(), ref.arrows.view(torch.int16))
 
 
+@pytest.mark.parametrize("W", [32, 64, 128, 256])
+@pytest.mark.parametrize("mode", ["single", "dual"])
+def test_banded_dp_quality_modes_match_plain(dev, W, mode):
+    from blasr_tpu_torch.ops.banded_align import banded_align_plain
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
+
+    args = _dp_case(W + 1, W)
+    I, L = args[0].shape
+    rng = np.random.default_rng(W)
+    qual = rng.integers(0, 64, (I, L)).astype(np.uint8)
+    if mode == "dual":
+        # low byte up to 255, high byte >= 128 on some cells
+        qual = (rng.integers(0, 256, (I, L)).astype(np.uint16)
+                | (rng.integers(0, 256, (I, L)).astype(np.uint16) << 8)).view(np.int16)
+    q = torch.from_numpy(qual)
+    ref = banded_align_plain(*args, q, with_traceback=True, band_width=W)
+    before = banded_align.launches_by_shape[(W, mode)]
+    got = banded_align(*[a.to(dev) for a in args], q.to(dev), with_traceback=True, band_width=W)
+    torch.cuda.synchronize()
+    assert banded_align.launches_by_shape[(W, mode)] == before + 1
+    for name in ("score", "best_a", "best_w"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), name
+    assert torch.equal(got.arrows.view(torch.int16).cpu(), ref.arrows.view(torch.int16))
+
+
 def test_gather_kernels_match_plain(dev):
     from blasr_tpu_torch.ops.gather import (
         gather_rows, gather_rows_plain, gather_spans, gather_spans_plain,
@@ -75,12 +100,14 @@ def test_kernel_wrappers_validate_inputs(dev):
                     torch.zeros(4, dtype=torch.int32, device=dev))
 
 
-def test_mapping_on_the_card_equals_cpu(dev):
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.batching import Read
-    from blasr_tpu.io.seqdb import SeqDB
+@pytest.mark.parametrize("qual", [None, "single", "dual"])
+def test_mapping_on_the_card_equals_cpu(dev, qual):
     from blasr_tpu_torch import bench
+    from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+    from blasr_tpu_torch.io.batching import Read
+    from blasr_tpu_torch.io.seqdb import SeqDB
     from blasr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
     from blasr_tpu_torch.output.m4 import format_m4
     from blasr_tpu_torch.pipeline.runner import run_mapping
 
@@ -93,7 +120,9 @@ def test_mapping_on_the_card_equals_cpu(dev):
         s = int(rng.integers(0, G - 1000))
         r = genome[s : s + int(rng.integers(300, 900))].copy()
         r[::17] = (r[::17] + 1) % 4
-        reads.append(Read(f"r{i}", r, None, i))
+        q = rng.integers(3, 45, len(r)).astype(np.uint8) if qual else None
+        qvs = {"iq": q[::-1].copy(), "sq": q} if qual == "dual" and i % 2 else None
+        reads.append(Read(f"r{i}", r, q, i, qvs=qvs))
     params = bench.bench_params(batch_size=8, max_read_len=1024, min_match_length=10)
     cpu = run_mapping(index, reads, params, device="cpu")
     reset_launch_counts()
@@ -101,3 +130,4 @@ def test_mapping_on_the_card_equals_cpu(dev):
     assert [format_m4(r) for r in gpu[0]] == [format_m4(r) for r in cpu[0]]
     assert gpu[1] == cpu[1]
     assert all(v > 0 for v in launch_counts().values())
+    assert banded_align.launches_by_shape[(32, qual or "none")] > 0

@@ -14,6 +14,10 @@ from blasr_tpu_torch.ops.gather import (
     gather_spans_plain,
 )
 
+# The suite runs in parallel worker processes: one intra-op thread each
+# keeps PyTorch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("span", [1, 7, 162])
 def test_gather_spans_matches_xla_clip(span):

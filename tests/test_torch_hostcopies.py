@@ -1,0 +1,207 @@
+"""The port's copies of the JAX package's host modules against their
+originals, and the C++ host helpers against their plain versions.
+
+The port imports nothing of ``blasr_tpu``; these tests hold each copy it
+keeps (params, sim, io, index, cli flags, native) equal to the module it
+was copied from, on the same inputs."""
+
+import dataclasses
+import gzip
+
+import numpy as np
+import pytest
+
+from blasr_tpu import params as jparams
+from blasr_tpu import sim as jsim
+from blasr_tpu.cli import blasr as jcli
+from blasr_tpu.index import artifacts as jart
+from blasr_tpu.index import suffix_array as jsa
+from blasr_tpu.io import batching as jbat
+from blasr_tpu.io import seqdb as jseqdb
+from blasr_tpu_torch import native, params, sim
+from blasr_tpu_torch.cli import args as targs
+from blasr_tpu_torch.core import encode
+from blasr_tpu_torch.index import artifacts, suffix_array
+from blasr_tpu_torch.io import batching, seqdb
+
+
+def test_mapping_params_fields_and_defaults_equal_jax():
+    jf = {f.name: f for f in dataclasses.fields(jparams.MappingParams)}
+    tf = {f.name: f for f in dataclasses.fields(params.MappingParams)}
+    assert list(jf) == list(tf)
+    for name, f in jf.items():
+        assert (tf[name].default, tf[name].default_factory) == (f.default, f.default_factory), name
+    for kw in ({}, dict(narrow_band=0), dict(narrow_band=0, guided_band=True),
+               dict(max_read_len=3328, narrow_band_max=3328, narrow_band=32)):
+        jp, tp = jparams.MappingParams(**kw), params.MappingParams(**kw)
+        for L in (256, 1024, 1536, 1537, 2048, 3328, 8192):
+            assert jp.band_width_for(L) == tp.band_width_for(L)
+        assert (jp.dp_candidates, jp.target_len, jp.num_dp_steps) == (
+            tp.dp_candidates, tp.target_len, tp.num_dp_steps)
+    for bad in (dict(band_width=100), dict(narrow_band=48), dict(min_match_length=31),
+                dict(best_n=3, n_dp_candidates=2), dict(best_n=7)):
+        for cls in (jparams.MappingParams, params.MappingParams):
+            with pytest.raises(ValueError):
+                cls(**bad).validate()
+
+
+def test_cli_flags_and_params_equal_jax():
+    jp, tp = jcli.build_arg_parser(), targs.build_arg_parser()
+    assert [(a.option_strings, a.dest, a.default) for a in jp._actions] == [
+        (a.option_strings, a.dest, a.default) for a in tp._actions]
+    for argv in ([], ["-bestn", "2", "-nCandidates", "8", "-bandSize", "16", "-ignoreQualities"],
+                 ["-minAvgQual", "12.5", "-indel", "4", "-match", "-3", "-sam",
+                  "-samqv", "InsertionQV", "SubstitutionQV", "-useSensitiveSearch"]):
+        full = ["r.fq", "g.fa", *argv]
+        assert dataclasses.asdict(jcli.params_from_args(jp.parse_args(full))) == (
+            dataclasses.asdict(targs.params_from_args(tp.parse_args(full))))
+
+
+def test_sim_corpus_bytes_equal_jax():
+    jg = jsim.simulate_genome(60_000, seed=7)
+    tg = sim.simulate_genome(60_000, seed=7)
+    assert jg.tobytes() == tg.tobytes()
+    jr, jt = jsim.simulate_reads(jg, 20, mean_len=500, seed=11)
+    tr, tt = sim.simulate_reads(tg, 20, mean_len=500, seed=11)
+    assert jt == tt
+    assert [(r.name, r.codes.tobytes()) for r in jr] == [(r.name, r.codes.tobytes()) for r in tr]
+    for model in ("published_clr", "default"):
+        jr, jt = jsim.simulate_reads_alchemy(jg, getattr(jsim.ErrorModel, model)(), 12, seed=13)
+        tr, tt = sim.simulate_reads_alchemy(tg, getattr(sim.ErrorModel, model)(), 12, seed=13)
+        assert jt == tt
+        assert [(r.name, r.codes.tobytes(), r.qual.tobytes()) for r in jr] == [
+            (r.name, r.codes.tobytes(), r.qual.tobytes()) for r in tr]
+    assert sim.parse_truth(tr[3].name) == jsim.parse_truth(tr[3].name)
+
+
+def _sam_line(name, flag, codes, qual, tags):
+    return "\t".join([
+        name, str(flag), "chr1", "11", "60", f"{len(codes)}M", "*", "0", "0",
+        encode.codes_to_seq(codes), (qual + 33).tobytes().decode(), *tags,
+    ])
+
+
+@pytest.fixture
+def read_files(tmp_path):
+    rng = np.random.default_rng(2)
+    recs = [(f"r{i}", rng.integers(0, 5, int(rng.integers(40, 90))).astype(np.uint8))
+            for i in range(6)]
+    quals = [rng.integers(2, 60, len(c)).astype(np.uint8) for _, c in recs]
+    fa = tmp_path / "r.fasta"
+    fa.write_text("".join(f">{n} desc\n{encode.codes_to_seq(c)[:30]}\n{encode.codes_to_seq(c)[30:]}\n"
+                          for n, c in recs))
+    fq = tmp_path / "r.fastq"
+    fq.write_text("".join(f"@{n}\n{encode.codes_to_seq(c)}\n+\n{(q + 33).tobytes().decode()}\n"
+                          for (n, c), q in zip(recs, quals)))
+    with gzip.open(tmp_path / "r.fastq.gz", "wt") as f:
+        f.write(fq.read_text())
+    lines = ["@HD\tVN:1.5", "@SQ\tSN:chr1\tLN:1000"]
+    for i, ((n, c), q) in enumerate(zip(recs, quals)):
+        iq = ((q * 3) % 90).astype(np.uint8)
+        tags = [f"iq:Z:{(iq + 33).tobytes().decode()}", f"sq:Z:{(q[::-1] + 33).tobytes().decode()}",
+                f"st:Z:{encode.codes_to_seq(c)}", "NM:i:3"]
+        if i == 2:
+            tags = tags[1:]                      # no iq track
+        flag = 16 if i % 2 else 0
+        lines.append(_sam_line(f"{n}/0_{len(c)}" if i == 3 else n, flag, c, q, tags))
+    lines.append(_sam_line("r1", 256, recs[1][1], quals[1], []))   # secondary: skipped
+    (tmp_path / "r.sam").write_text("\n".join(lines) + "\n")
+    fofn = tmp_path / "r.fofn"
+    fofn.write_text("r.fasta\nr.fastq\n")
+    return tmp_path
+
+
+@pytest.mark.parametrize("name", ["r.fasta", "r.fastq", "r.fastq.gz", "r.sam", "r.fofn"])
+def test_read_records_equal_jax(read_files, name):
+    path = str(read_files / name)
+    jr, tr = jbat.read_records(path), batching.read_records(path)
+    assert len(jr) == len(tr) > 0
+    for a, b in zip(jr, tr):
+        assert (a.name, a.index) == (b.name, b.index)
+        np.testing.assert_array_equal(a.codes, b.codes)
+        assert (a.qual is None) == (b.qual is None)
+        if a.qual is not None:
+            np.testing.assert_array_equal(a.qual, b.qual)
+        assert (a.qvs or {}).keys() == (b.qvs or {}).keys()
+        for k in a.qvs or {}:
+            np.testing.assert_array_equal(a.qvs[k], b.qvs[k])
+    if name == "r.sam":
+        assert any(r.qvs and "iq" in r.qvs for r in tr)
+        rev = tr[1]                              # FLAG 16: back to read orientation
+        assert encode.codes_to_seq(rev.qvs["st"]) == encode.codes_to_seq(rev.codes)
+
+
+def test_bam_input_raises(tmp_path):
+    with pytest.raises(NotImplementedError, match="BAM"):
+        batching.read_records(str(tmp_path / "r.bam"))
+
+
+@pytest.mark.parametrize("mode", ["none", "single", "dual"])
+def test_batch_reads_packing_equal_jax(mode):
+    rng = np.random.default_rng(4)
+    jreads, treads = [], []
+    for i in range(23):
+        n = int(rng.integers(100, 700))
+        codes = rng.integers(0, 5, n).astype(np.uint8)
+        qual = rng.integers(0, 60, n).astype(np.uint8)
+        qvs = None
+        if mode == "single" and i % 3 == 0:
+            qual = None                          # a row without quality values
+        if mode == "none":
+            qual = None
+        if mode == "dual":
+            qvs = [{"iq": qual[::-1].copy(), "sq": (qual + 100).astype(np.uint8)},
+                   {"sq": qual.copy()}, {"iq": (qual + 130).astype(np.uint8)}, None][i % 4]
+            qual = None if i % 5 == 0 else qual
+        jreads.append(jbat.Read(f"q{i}", codes, qual, i, qvs=qvs))
+        treads.append(batching.Read(f"q{i}", codes, qual, i, qvs=qvs))
+    jb = list(jbat.batch_reads(jreads, 8, 640))
+    tb = list(batching.batch_reads(treads, 8, 640))
+    assert len(jb) == len(tb) >= 3
+    for a, b in zip(jb, tb):
+        for f in ("codes", "lengths", "indices"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        assert a.names == b.names
+        if mode == "none":
+            assert a.qual is None and b.qual is None
+        else:
+            assert b.qual.dtype == (np.uint16 if mode == "dual" else np.uint8)
+            np.testing.assert_array_equal(a.qual, b.qual)
+
+
+def test_suffix_array_and_index_equal_jax(tmp_path):
+    rng = np.random.default_rng(6)
+    codes = rng.integers(0, 4, 3000).astype(np.uint8)
+    codes[100:400] = codes[1000:1300]            # a repeat
+    np.testing.assert_array_equal(jsa.build_suffix_array(codes), suffix_array.build_suffix_array(codes))
+    genome = rng.integers(0, 5, 20_000).astype(np.uint8)
+    starts = np.array([0, 7000, 20_000], np.int64)
+    ji = jart.build_index_from_arrays(genome, jseqdb.SeqDB(["a", "b"], starts, ["x", "y"]), k=12)
+    ti = artifacts.build_index_from_arrays(genome, seqdb.SeqDB(["a", "b"], starts, ["x", "y"]), k=12)
+    for f in ("genome", "sa", "sa_kmers", "pos_ok"):
+        a, b = getattr(ji, f), getattr(ti, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, f)
+    # load_index from a FASTA, and the cache file the JAX package writes
+    from blasr_tpu.io.fasta import write_fasta
+
+    fa = str(tmp_path / "g.fa")
+    write_fasta(fa, [("a", genome[:7000]), ("b", genome[7000:])])
+    jl = jart.load_index(fa, k=12)
+    tl = artifacts.load_index(fa, k=12)
+    assert tl.seqdb.names == jl.seqdb.names and tl.seqdb.md5s == jl.seqdb.md5s
+    np.testing.assert_array_equal(tl.sa, jl.sa)
+
+
+def test_native_helpers_equal_their_plain_versions():
+    assert native.available()                    # built by g++, which the tests need
+    rng = np.random.default_rng(8)
+    for n in (0, 1, 2, 17, 5000):
+        codes = rng.integers(0, 4, n).astype(np.uint8)
+        np.testing.assert_array_equal(native.sais(codes), suffix_array.build_suffix_array_plain(codes))
+    data = b"ACGTNacgtnRYK\n  AC\r\nG\tT" + bytes(rng.integers(33, 127, 500).astype(np.uint8))
+    np.testing.assert_array_equal(native.encode_strip(data), native.encode_strip_plain(data))
+    packed = rng.integers(0, 256, 40).astype(np.uint8)
+    for nops in (0, 1, 5, 160):
+        np.testing.assert_array_equal(native.unpack_moves(packed, nops),
+                                      native.unpack_moves_plain(packed, nops))

@@ -1,22 +1,33 @@
-"""The port runs where JAX is absent: a subprocess with ``jax`` blocked
-imports blasr_tpu_torch and maps 8 reads end to end on the CPU to -m 4
-lines, then checks that no JAX module was loaded."""
+"""The port stands alone: subprocesses with ``jax`` and the whole
+``blasr_tpu`` package blocked import blasr_tpu_torch and map FASTA and
+FASTQ reads end to end on the CPU to -m 4 lines, through the library and
+through the CLI, and no file of the port imports either package."""
 
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tokenize
+
+import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = r"""
-import io, json, sys
-sys.modules["jax"] = None            # any 'import jax' now raises ImportError
-sys.modules["jaxlib"] = None
+BLOCK = r"""
+import sys
+for _name in ("jax", "jaxlib", "blasr_tpu"):
+    sys.modules[_name] = None        # any import of them now raises ImportError
+"""
+
+SCRIPT = BLOCK + r"""
+import io, json
 import numpy as np
-from blasr_tpu.index.artifacts import build_index_from_arrays
-from blasr_tpu.io.batching import Read
-from blasr_tpu.io.seqdb import SeqDB
+from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+from blasr_tpu_torch.io.batching import Read
+from blasr_tpu_torch.io.seqdb import SeqDB
 from blasr_tpu_torch.output.m4 import write_m4
 from blasr_tpu_torch.pipeline.runner import run_mapping
 from blasr_tpu_torch import bench
@@ -25,54 +36,74 @@ rng = np.random.default_rng(3)
 G = 50_000
 genome = rng.integers(0, 4, G).astype(np.uint8)
 index = build_index_from_arrays(genome, SeqDB(["ref"], np.array([0, G]), ["0" * 32]), k=9)
-reads = []
-for i in range(8):
-    s = int(rng.integers(0, G - 800))
-    r = genome[s : s + int(rng.integers(300, 700))].copy()
-    r[::23] = (r[::23] + 1) % 4
-    reads.append(Read(f"sim/{i}|ref|{s}|{s + len(r)}|0", r, None, i))
 params = bench.bench_params(batch_size=4, max_read_len=768, min_match_length=9)
-records, unmapped = run_mapping(index, reads, params, device="cpu")
-buf = io.StringIO()
-write_m4(records, buf)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
-                and sys.modules[m] is not None)
-print(json.dumps({"lines": buf.getvalue().splitlines(), "unmapped": unmapped,
-                  "jax_modules": loaded,
-                  "accuracy": bench.accuracy_true_locus(records, reads)}))
+out = {}
+for fmt in ("fasta", "fastq"):
+    reads = []
+    for i in range(8):
+        s = int(rng.integers(0, G - 800))
+        r = genome[s : s + int(rng.integers(300, 700))].copy()
+        r[::23] = (r[::23] + 1) % 4
+        qual = rng.integers(5, 40, len(r)).astype(np.uint8) if fmt == "fastq" else None
+        reads.append(Read(f"sim/{i}|ref|{s}|{s + len(r)}|0", r, qual, i))
+    records, unmapped = run_mapping(index, reads, params, device="cpu")
+    buf = io.StringIO()
+    write_m4(records, buf)
+    out[fmt] = {"lines": buf.getvalue().splitlines(), "unmapped": unmapped,
+                "accuracy": bench.accuracy_true_locus(records, reads)}
+out["loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "blasr_tpu")
+                       and sys.modules[m] is not None)
+print(json.dumps(out))
 """
 
 
-def test_port_maps_with_jax_blocked():
+def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"   # one PyTorch CPU thread, as in the other tests
+    return env
+
+
+def test_port_maps_with_jax_blocked():
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["jax_modules"] == []
-    assert len(out["lines"]) == 8 and not out["unmapped"]
-    assert out["accuracy"] == 1.0
-    for line in out["lines"]:
-        assert len(line.split()) == 13
+    assert out["loaded"] == []
+    for fmt in ("fasta", "fastq"):
+        assert len(out[fmt]["lines"]) == 8 and not out[fmt]["unmapped"], fmt
+        assert out[fmt]["accuracy"] == 1.0
+        for line in out[fmt]["lines"]:
+            assert len(line.split()) == 13
+    # the quality values scale the scores
+    assert [ln.split()[2] for ln in out["fasta"]["lines"]] != [
+        ln.split()[2] for ln in out["fastq"]["lines"]]
 
 
-CLI_SCRIPT = r"""
-import sys
-sys.modules["jax"] = None
-sys.modules["jaxlib"] = None
+CLI_SCRIPT = BLOCK + r"""
 from blasr_tpu_torch.cli.blasr import main
-sys.exit(main(sys.argv[1:]))
+argv = sys.argv[1:]
+i = argv.index("--")
+common, runs = argv[:i], argv[i + 1 :]
+for reads, out in zip(runs[::2], runs[1::2]):    # one CLI run per read file
+    assert main([reads, *common, "-out", out]) == 0
 """
 
+CLI_FORMATS = ("fasta", "fastq", "sam")
 
-def test_cli_writes_m4_with_jax_blocked(tmp_path):
-    import numpy as np
 
-    from blasr_tpu.io.fasta import write_fasta
+@pytest.fixture(scope="module")
+def cli_outputs(tmp_path_factory):
+    """The CLI of the port, in one subprocess with ``jax`` and
+    ``blasr_tpu`` blocked, on the same six reads as FASTA, as FASTQ and as
+    SAM with iq/sq tracks: format -> the lines it wrote."""
+    from blasr_tpu_torch.core.encode import codes_to_seq
+    from blasr_tpu_torch.io.fasta import write_fasta
+    from blasr_tpu_torch.io.fastq import write_fastq
 
+    tmp_path = tmp_path_factory.mktemp("cli")
     rng = np.random.default_rng(5)
     genome = rng.integers(0, 4, 40_000).astype(np.uint8)
     reads = []
@@ -80,32 +111,79 @@ def test_cli_writes_m4_with_jax_blocked(tmp_path):
         s = int(rng.integers(0, 39_000))
         r = genome[s : s + 500].copy()
         r[::29] = (r[::29] + 2) % 4
-        reads.append((f"q{i}", r))
+        reads.append((f"q{i}", r, rng.integers(5, 40, 500).astype(np.uint8)))
     write_fasta(str(tmp_path / "g.fa"), [("chr1", genome)])
-    write_fasta(str(tmp_path / "r.fa"), reads)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    out = tmp_path / "out.m4"
+    write_fasta(str(tmp_path / "r.fasta"), [(n, c) for n, c, _ in reads])
+    write_fastq(str(tmp_path / "r.fastq"), reads)
+    (tmp_path / "r.sam").write_text("".join(
+        f"{n}\t4\t*\t0\t0\t*\t*\t0\t0\t{codes_to_seq(c)}\t{(q + 33).tobytes().decode()}"
+        f"\tiq:Z:{(q[::-1] + 33).tobytes().decode()}\tsq:Z:{(q + 33).tobytes().decode()}\n"
+        for n, c, q in reads))
+    runs = []
+    for fmt in CLI_FORMATS:
+        runs += [str(tmp_path / f"r.{fmt}"), str(tmp_path / f"{fmt}.m4")]
     proc = subprocess.run(
-        [sys.executable, "-c", CLI_SCRIPT, str(tmp_path / "r.fa"), str(tmp_path / "g.fa"),
+        [sys.executable, "-c", CLI_SCRIPT, str(tmp_path / "g.fa"),
          "-m", "4", "-header", "-device", "cpu", "-minMatch", "10",
-         "-batchSize", "4", "-out", str(out)],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+         "-batchSize", "4", "--", *runs],
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    lines = out.read_text().splitlines()
+    return {fmt: (tmp_path / f"{fmt}.m4").read_text().splitlines() for fmt in CLI_FORMATS}
+
+
+def test_cli_writes_m4_with_jax_blocked(cli_outputs):
+    _check_cli_lines(cli_outputs["fasta"])
+
+
+@pytest.mark.parametrize("fmt", ["fastq", "sam"])
+def test_cli_maps_quality_reads_with_blasr_tpu_blocked(cli_outputs, fmt):
+    _check_cli_lines(cli_outputs[fmt])
+    # the quality values scale the scores: not the FASTA result
+    assert cli_outputs[fmt] != cli_outputs["fasta"]
+
+
+def _check_cli_lines(lines):
     assert lines[0].startswith("qname tname score")
     assert len(lines) == 7
     assert {ln.split()[0] for ln in lines[1:]} == {f"q{i}/0_500" for i in range(6)}
 
 
 def test_cli_names_unsupported_options():
-    import pytest
-
     from blasr_tpu_torch.cli.blasr import main
 
     for argv, name in ((["-sam"], "-sam"), (["-bwt"], "-bwt"),
                        (["-useSensitiveSearch"], "-useSensitiveSearch"),
-                       (["-m", "5"], "-m 5")):
+                       (["-m", "5"], "-m 5"), (["-samqv", "InsertionQV"], "-samqv"),
+                       (["-clipping", "hard"], "-clipping")):
         with pytest.raises(SystemExit, match=name):
             main(["r.fa", "g.fa", *argv])
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "blasr_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_no_port_file_imports_jax_or_blasr_tpu():
+    """Outside string literals and comments, no file of the port names the
+    ``blasr_tpu`` or ``jax`` packages; no string is such a module path (an
+    ``importlib`` target). Docstrings may name the reference's file:line."""
+    module_path = re.compile(r"^(blasr_tpu|jax|jaxlib)(\.\w+)*$")
+    files = _port_files()
+    assert len(files) > 20
+    for path in files:
+        with open(path, "rb") as f:
+            toks = list(tokenize.tokenize(f.readline))
+        for tok in toks:
+            if tok.type == tokenize.NAME:
+                assert tok.string not in ("blasr_tpu", "jax", "jaxlib"), (path, tok.start)
+            elif tok.type == tokenize.STRING:
+                body = tok.string.strip("rbuRBU").strip("\"'")
+                assert not module_path.match(body), (path, tok.start)
+        text = open(path).read()
+        for line in io.StringIO(text):
+            code = line.split("#", 1)[0]
+            assert not re.match(r"\s*(from|import)\s+(blasr_tpu|jax)\b(?!_)", code), (path, line)

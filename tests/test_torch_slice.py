@@ -27,6 +27,10 @@ from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
 
 from conftest import mutate_read
 
+# The suite runs in parallel worker processes: one intra-op thread each
+# keeps PyTorch's CPU thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 BASE = MappingParams(
     batch_size=8, max_read_len=1024, n_candidates=4, n_dp_candidates=2,
     anchor_stride=4, max_anchors_per_read=128, narrow_band=32,
