@@ -164,3 +164,52 @@ def accuracy_true_locus(records, reads) -> float:
         ):
             n_ok += 1
     return n_ok / max(len(reads), 1)
+
+
+def deviating_knots(I: int, L: int, T: int, W: int, pad2: int, num: int,
+                    seed: int = 0, device=None):
+    """Guided band knots (I, NK) for DP windows of one bucket: each item's
+    band wanders off the shared drift line (``make_qoff_num(L, T, W, pad2,
+    num)``) by a random walk whose excursions reach past the reference's
+    clamp, through ``make_qoff_knots`` and ``clamp_knots_to_shared`` at
+    ``guided_max_dev(W)``, as the mapper builds them."""
+    import numpy as np
+    import torch
+
+    from blasr_tpu_torch.ops.banded_align import (
+        KNOT_SPACING, clamp_knots_to_shared, guided_max_dev, make_qoff_knots,
+        make_qoff_num, n_knots,
+    )
+
+    rng = np.random.default_rng(seed)
+    S = L + T - 1
+    NK = n_knots(S)
+    shared = make_qoff_num(L, T, W, pad2, num)
+    a = np.minimum(np.arange(NK) * KNOT_SPACING, S - 1)
+    walk = np.cumsum(rng.integers(-6, 7, (I, NK)), axis=1).astype(np.float64)
+    reach = rng.uniform(0.5, 1.5, (I, 1)) * guided_max_dev(W)
+    walk *= reach / np.maximum(np.abs(walk).max(axis=1, keepdims=True), 1)
+    v = shared.numpy()[a][None, :] + np.rint(walk).astype(np.int32)
+    knots = make_qoff_knots(
+        torch.from_numpy(np.broadcast_to(a, (I, NK)).astype(np.int32)),
+        torch.from_numpy(v.astype(np.int32)), torch.ones((I, NK), dtype=torch.bool),
+        S, L, W, diag=pad2, num=num,
+    )
+    knots = clamp_knots_to_shared(knots, shared, W, max_dev=guided_max_dev(W))
+    return knots.to(device) if device is not None else knots
+
+
+def span_gather_inputs(span: int, n_words: int = 600_064, items: int = 512,
+                       seed: int = 0, device=None):
+    """The shapes of the TPU span-gather microbenchmark
+    (``scripts/micro_dma.py``): a source of ``n_words`` random int32 words
+    and ``items`` starts in [0, n_words - span - 128); (src, starts)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    src = torch.from_numpy(rng.integers(0, 2**31 - 1, n_words).astype(np.int32))
+    starts = torch.from_numpy(rng.integers(0, n_words - span - 128, items).astype(np.int32))
+    if device is not None:
+        src, starts = src.to(device), starts.to(device)
+    return src, starts

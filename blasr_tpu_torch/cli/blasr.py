@@ -8,6 +8,9 @@ its parser and ``params_from_args``). Only the options of the ported slice
 are accepted (see ``SUPPORTED``); any other option given raises an error
 that names it. FASTQ quality values, and the ``iq``/``sq`` tracks of a SAM
 read file, scale the DP's costs unless ``-ignoreQualities`` is given.
+``-useGuidedAlign`` bands each read along its own anchor chain (the wide
+buckets keep the base band of 128); ``-scoreMatrix "25 ints"`` scores
+substitutions from a 5x5 matrix.
 ``-device`` defaults to ``cuda`` and never falls back to the CPU.
 """
 
@@ -29,7 +32,7 @@ SUPPORTED = {
     "minSubreadLength", "minMapQV", "minInterval", "forwardOnly",
     "indel", "insertion", "deletion", "match", "mismatch",
     "affineOpen", "affineExtend", "pvaltype", "indelRate",
-    "ignoreQualities", "minAvgQual",
+    "ignoreQualities", "minAvgQual", "useGuidedAlign", "scoreMatrix",
 }
 
 

@@ -2,17 +2,23 @@
 //
 // Replaces the Pallas kernel banded_align_pallas (blasr_tpu/ops/
 // banded_pallas.py:716, pallas_call at :957, body _make_kernel :200-686)
-// in its unguided modes, with or without quality values (the TPU's
-// per-cell quality costs are :537-550). It computes exactly what
+// in all its modes: unguided, guided W >= 128 (:374-403) and chunked guided
+// W = 32/64 (:289-373), with or without quality values (the TPU's per-cell
+// quality costs are :537-550), with the default scores or a score matrix
+// (:555-559). It computes exactly what
 // the plain version (blasr_tpu_torch/ops/banded_align.py, itself the port
 // of the XLA-scan oracle blasr_tpu/ops/banded_align.py) computes:
-//   cell (a, w): q = qoff[a] + w, t = a - q
+//   cell (a, w): q = qoff[a] + w, t = a - q; guided, qoff[a] is each
+//   item's own knot lerp (k0 * (64 - r) + k1 * r) >> 6 with j = a >> 6,
+//   r = a & 63, k0 = knots[i][j], k1 = knots[i][min(j + 1, NK - 1)];
 //   H = min(min(H(a-2, diag), 0) + sub, H(a-1, up) + ins, H(a-1, left) + del,
 //           E, F), clamped at 0; E/F the affine open/extend recurrences;
 //   with quality values (QMode single: one uint8 phred stream; dual: uint16
 //   phred pairs, low byte sq, high byte iq) the mismatch cost of an ACGT
 //   pair and the insertion cost become max(1, floor((base * clip(q, 4, 30)
 //   + 7) / 15)) of the cell's query base, phred 15 past the read's row;
+//   with a score matrix the substitution score is mat[5 qc + min(tc, 4)]
+//   (the quality-scaled insertion cost stays);
 //   cells outside qlen, [tlo, thi) or t >= 0 are INF;
 //   one uint16 arrow word per cell: 3-bit source, E bit, F bit, 6-bit
 //   diagonal run, 5-bit in-run mismatch count, stored (S, I, W);
@@ -36,7 +42,20 @@
 // ring (step a writes slot a % 3 and reads the other two), so one barrier
 // per step separates every read from the next overwrite. The TPU kernel's
 // lane packing (_widen, _interleave, reversed targets) is layout for the
-// TPU's 128-lane vregs and has no counterpart here. Each lane tracks its
+// TPU's 128-lane vregs and has no counterpart here; so is the chunked
+// guided mode's packing of 128/W items per lane row and its fetch span,
+// so the two guided TPU modes are one mode here. Guided and matrix live in
+// a third template parameter, Special, that is on when either is: the
+// instances without it are the shared-schedule, default-score kernel with
+// nothing added (with the two switches as runtime branches of every
+// instance, tools/dp_kernel_times.py measured 9-29% more time per launch
+// on an NVIDIA H100 80GB HBM3 at 700 W). Inside
+// a Special instance the two are runtime branches, uniform over the grid,
+// so the build has 24 instances, not 48: a guided block stages its item's
+// NK knots (about 110 at L = 3328) in dynamic shared memory and every
+// thread evaluates the same lerp per step, in place of the qoff load; a
+// matrix block stages the 25 values in shared memory and reads one per
+// cell in place of the match/mismatch/N select. Each lane tracks its
 // own best with a strict '<' (so it keeps its earliest step); one block
 // reduction of a packed (score, a, w) key at the end gives the oracle's
 // tie order.
@@ -52,9 +71,13 @@ constexpr int kSrcDiag = 0, kSrcUp = 1, kSrcLeft = 2, kSrcE = 3, kSrcF = 4,
 constexpr int kMaxSteps = 1 << 22;  // a must fit the 23 bits of the best key
 constexpr int kQualNone = 0, kQualSingle = 1, kQualDual = 2;
 constexpr int kQvNeutral = 15;
+constexpr int kKnotLog2 = 6, kKnotSpacing = 1 << kKnotLog2;
+constexpr int kMaxKnots = 8192;  // 32 KB of knots: with the ring, under 48 KB
 
 struct Scores {
   int match, mismatch, n_score, ins, del, open, extend;
+  int use_matrix;
+  int mat[25];  // row-major query x target code (A C G T N)
 };
 
 __device__ __forceinline__ int lane_value(int x, int lane, int fill) {
@@ -75,22 +98,26 @@ __device__ __forceinline__ int row_value(const int* row, int w, int fill) {
   return (w >= 0 && w < W) ? row[w] : fill;
 }
 
-template <int W, int QMode>
+template <int W, int QMode, bool Special>
 __global__ void __launch_bounds__(W)
 banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ qlen,
                  const uint8_t* __restrict__ target, const int32_t* __restrict__ tlo,
                  const int32_t* __restrict__ thi, const int32_t* __restrict__ qoff,
+                 const int32_t* __restrict__ knots, int nk,
                  const void* __restrict__ qual, int32_t* __restrict__ best,
                  uint16_t* __restrict__ arrows,
                  int n_items, int L, int T, int S, Scores sc) {
   constexpr int kSlots = W > 32 ? 3 : 1;
   __shared__ int sH[kSlots][W], sE[kSlots][W], sF[kSlots][W], sR[kSlots][W],
       sM[kSlots][W];
+  __shared__ int sMat[25];
+  extern __shared__ int sKnots[];  // nk ints when guided (knots != nullptr)
   const int i = blockIdx.x;
   const int w = threadIdx.x;
   const uint8_t* qrow = query + static_cast<size_t>(i) * L;
   const uint8_t* trow = target + static_cast<size_t>(i) * T;
   const int ql = qlen[i], tl = tlo[i], th = thi[i];
+  const bool guided = knots != nullptr;
 
   int cur = 0, p1 = 2, p2 = 1;  // ring slots of steps a, a-1, a-2
   if constexpr (W > 32) {
@@ -101,14 +128,30 @@ banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ 
       sR[s][w] = 0;
       sM[s][w] = 0;
     }
-    __syncthreads();
   }
+  if constexpr (Special) {
+    if (guided) {
+      const int32_t* krow = knots + static_cast<size_t>(i) * nk;
+      for (int j = w; j < nk; j += W) sKnots[j] = krow[j];
+    }
+    if (sc.use_matrix && w == 0) {
+#pragma unroll
+      for (int j = 0; j < 25; ++j) sMat[j] = sc.mat[j];
+    }
+  }
+  if constexpr (W > 32 || Special) __syncthreads();
 
   int H1 = kInf, H2 = kInf, E1 = kInf, F1 = kInf, R1 = 0, R2 = 0, M1 = 0, M2 = 0;
   int best_v = 0, best_a = 0;
   int qo_prev = 0, s1_prev = 0;
   for (int a = 0; a < S; ++a) {
-    const int qo = __ldg(qoff + a);
+    int qo;
+    if (Special && guided) {
+      const int j = a >> kKnotLog2, r = a & (kKnotSpacing - 1);
+      qo = (sKnots[j] * (kKnotSpacing - r) + sKnots[min(j + 1, nk - 1)] * r) >> kKnotLog2;
+    } else {
+      qo = __ldg(qoff + a);
+    }
     const int s1 = a > 0 ? qo - qo_prev : 0;
     const int s2 = s1_prev;
     qo_prev = qo;
@@ -116,19 +159,22 @@ banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ 
     const int dd = s1 + s2 - 1;
     const int q = qo + w;
     const int t = a - q;
-    const int qc = q < L ? static_cast<int>(__ldg(qrow + q)) : 4;
+    // a guided schedule comes from the caller's knots: keep its reads in
+    // the row even if a knot lies outside [0, L - W]
+    const bool q_in = (!Special || q >= 0) && q < L;
+    const int qc = q_in ? static_cast<int>(__ldg(qrow + q)) : 4;
     const int tc = (t >= 0 && t < T) ? static_cast<int>(__ldg(trow + t)) : 5;
     const bool valid = q < ql && t >= tl && t < th && t >= 0;
     int x_cell = sc.mismatch, ins_cell = sc.ins;
     if constexpr (QMode == kQualSingle) {
       const uint8_t* qv = static_cast<const uint8_t*>(qual) + static_cast<size_t>(i) * L;
-      const int v = q < L ? static_cast<int>(__ldg(qv + q)) : kQvNeutral;
+      const int v = q_in ? static_cast<int>(__ldg(qv + q)) : kQvNeutral;
       x_cell = qv_cost(sc.mismatch, v);
       ins_cell = qv_cost(sc.ins, v);
     } else if constexpr (QMode == kQualDual) {
       const uint16_t* qv = static_cast<const uint16_t*>(qual) + static_cast<size_t>(i) * L;
-      const int v = q < L ? static_cast<int>(__ldg(qv + q))
-                          : (kQvNeutral | (kQvNeutral << 8));
+      const int v = q_in ? static_cast<int>(__ldg(qv + q))
+                         : (kQvNeutral | (kQvNeutral << 8));
       x_cell = qv_cost(sc.mismatch, v & 255);
       ins_cell = qv_cost(sc.ins, v >> 8);
     }
@@ -153,8 +199,13 @@ banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ 
     }
 
     const bool eq = qc == tc && qc < 4;
-    const bool anyn = qc >= 4 || tc >= 4;
-    const int sub = eq ? sc.match : (anyn ? sc.n_score : x_cell);
+    int sub;
+    if (Special && sc.use_matrix) {
+      sub = qc <= 4 ? sMat[qc * 5 + min(tc, 4)] : 0;
+    } else {
+      const bool anyn = qc >= 4 || tc >= 4;
+      sub = eq ? sc.match : (anyn ? sc.n_score : x_cell);
+    }
 
     const int e_open = H1_left + sc.open;
     int E_new = min(E1_left, e_open) + sc.extend;
@@ -239,64 +290,78 @@ banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ 
   }
 }
 
+// the launch's pointers and sizes, as the C entry point received them
+struct Args {
+  const void *query, *qlen, *target, *tlo, *thi, *qoff, *knots, *qual;
+  void *best, *arrows;
+  int nk, n_items, L, T, S;
+};
+
+template <int W, int QMode, bool Special>
+void launch_special(const Args& g, const Scores& sc, cudaStream_t stream) {
+  const size_t smem = g.knots != nullptr ? sizeof(int) * static_cast<size_t>(g.nk) : 0;
+  banded_dp_kernel<W, QMode, Special><<<g.n_items, W, smem, stream>>>(
+      static_cast<const uint8_t*>(g.query), static_cast<const int32_t*>(g.qlen),
+      static_cast<const uint8_t*>(g.target), static_cast<const int32_t*>(g.tlo),
+      static_cast<const int32_t*>(g.thi), static_cast<const int32_t*>(g.qoff),
+      static_cast<const int32_t*>(g.knots), g.nk, g.qual,
+      static_cast<int32_t*>(g.best), static_cast<uint16_t*>(g.arrows), g.n_items, g.L,
+      g.T, g.S, sc);
+}
+
 template <int W, int QMode>
-void launch_mode(const void* query, const void* qlen, const void* target, const void* tlo,
-                 const void* thi, const void* qoff, const void* qual, void* best,
-                 void* arrows, int n_items, int L, int T, int S, Scores sc,
-                 cudaStream_t stream) {
-  banded_dp_kernel<W, QMode><<<n_items, W, 0, stream>>>(
-      static_cast<const uint8_t*>(query), static_cast<const int32_t*>(qlen),
-      static_cast<const uint8_t*>(target), static_cast<const int32_t*>(tlo),
-      static_cast<const int32_t*>(thi), static_cast<const int32_t*>(qoff), qual,
-      static_cast<int32_t*>(best), static_cast<uint16_t*>(arrows), n_items, L, T,
-      S, sc);
+void launch_mode(const Args& g, const Scores& sc, cudaStream_t stream) {
+  if (g.knots != nullptr || sc.use_matrix)
+    launch_special<W, QMode, true>(g, sc, stream);
+  else
+    launch_special<W, QMode, false>(g, sc, stream);
 }
 
 template <int W>
-bool launch(const void* query, const void* qlen, const void* target, const void* tlo,
-            const void* thi, const void* qoff, const void* qual, int qmode, void* best,
-            void* arrows, int n_items, int L, int T, int S, Scores sc,
-            cudaStream_t stream) {
+bool launch(const Args& g, int qmode, const Scores& sc, cudaStream_t stream) {
   switch (qmode) {
-    case kQualNone:
-      launch_mode<W, kQualNone>(query, qlen, target, tlo, thi, qoff, qual, best, arrows,
-                                n_items, L, T, S, sc, stream);
-      return true;
-    case kQualSingle:
-      launch_mode<W, kQualSingle>(query, qlen, target, tlo, thi, qoff, qual, best, arrows,
-                                  n_items, L, T, S, sc, stream);
-      return true;
-    case kQualDual:
-      launch_mode<W, kQualDual>(query, qlen, target, tlo, thi, qoff, qual, best, arrows,
-                                n_items, L, T, S, sc, stream);
-      return true;
-    default:
-      return false;
+    case kQualNone: launch_mode<W, kQualNone>(g, sc, stream); return true;
+    case kQualSingle: launch_mode<W, kQualSingle>(g, sc, stream); return true;
+    case kQualDual: launch_mode<W, kQualDual>(g, sc, stream); return true;
+    default: return false;
   }
 }
 
 }  // namespace
 
-// qual: (n_items, L) uint8 (qmode 1) or uint16 (qmode 2), NULL for qmode 0
+// Exactly one of qoff (S,) and knots (n_items, nk) is given: the shared
+// schedule or the per-item guided knots, nk >= ((S - 1) >> 6) + 1.
+// qual: (n_items, L) uint8 (qmode 1) or uint16 (qmode 2), NULL for qmode 0.
+// matrix: 25 ints on the host (row-major query x target code), or NULL for
+// the match/mismatch/N scores.
 extern "C" int banded_dp_launch(const void* query, const void* qlen, const void* target,
                                 const void* tlo, const void* thi, const void* qoff,
-                                const void* qual, int qmode, void* best, void* arrows,
-                                int n_items, int L, int T, int S, int W, int match,
-                                int mismatch, int n_score, int ins, int del, int open,
-                                int extend, void* stream) {
+                                const void* knots, int nk, const void* qual, int qmode,
+                                void* best, void* arrows, int n_items, int L, int T, int S,
+                                int W, int match, int mismatch, int n_score, int ins,
+                                int del, int open, int extend, const int* matrix,
+                                void* stream) {
   if (n_items <= 0) return 0;
   if (S != L + T - 1 || S <= 0 || S >= kMaxSteps)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((qmode == kQualNone) != (qual == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Scores sc{match, mismatch, n_score, ins, del, open, extend};
+  if ((qoff == nullptr) == (knots == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (knots != nullptr && (nk < ((S - 1) >> kKnotLog2) + 1 || nk > kMaxKnots))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Scores sc{match, mismatch, n_score, ins, del, open, extend, matrix != nullptr, {}};
+  if (matrix != nullptr)
+    for (int j = 0; j < 25; ++j) sc.mat[j] = matrix[j];
+  const Args g{query, qlen, target, tlo, thi, qoff, knots, qual, best, arrows,
+               knots != nullptr ? nk : 0, n_items, L, T, S};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bool ok = false;
   switch (W) {
-    case 32: ok = launch<32>(query, qlen, target, tlo, thi, qoff, qual, qmode, best, arrows, n_items, L, T, S, sc, st); break;
-    case 64: ok = launch<64>(query, qlen, target, tlo, thi, qoff, qual, qmode, best, arrows, n_items, L, T, S, sc, st); break;
-    case 128: ok = launch<128>(query, qlen, target, tlo, thi, qoff, qual, qmode, best, arrows, n_items, L, T, S, sc, st); break;
-    case 256: ok = launch<256>(query, qlen, target, tlo, thi, qoff, qual, qmode, best, arrows, n_items, L, T, S, sc, st); break;
+    case 32: ok = launch<32>(g, qmode, sc, st); break;
+    case 64: ok = launch<64>(g, qmode, sc, st); break;
+    case 128: ok = launch<128>(g, qmode, sc, st); break;
+    case 256: ok = launch<256>(g, qmode, sc, st); break;
     default: break;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);

@@ -30,8 +30,10 @@ def launch_counts() -> dict:
 
 
 def dp_launch_counts() -> dict:
-    """The DP kernel's launches per band width and quality mode, as
-    ``{"W32/single": n, ...}`` (shapes launched at least once)."""
+    """The DP kernel's launches per band width and quality mode, and with
+    guided knots or a score matrix, as ``{"W32/single": n, "W32/guided": m,
+    ...}`` (keys launched at least once; a guided or matrix launch counts
+    under its quality mode too)."""
     from blasr_tpu_torch.ops.banded_cuda import banded_align
 
     return {f"W{w}/{m}": n for (w, m), n in banded_align.launches_by_shape.items() if n}

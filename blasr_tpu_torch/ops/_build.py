@@ -41,15 +41,18 @@ HOST_SOURCE = "host_native.cpp"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)
 # C signatures of the exported functions (each CUDA launcher returns a
 # cudaError_t)
 _SIGNATURES = {
     "banded_dp_launch": ([
-        _P, _P, _P, _P, _P, _P,      # query qlen target tlo thi qoff
+        _P, _P, _P, _P, _P,          # query qlen target tlo thi
+        _P, _P, _I,                  # qoff (S,) or NULL, knots (I, NK) or NULL, NK
         _P, _I,                      # qual (I, L) uint8 / uint16 or NULL, qmode
         _P, _P,                      # best (3, I) int32, arrows (S, I, W) uint16
         _I, _I, _I, _I, _I,          # I L T S W
         _I, _I, _I, _I, _I, _I, _I,  # match mismatch n ins del open extend
+        _PI,                         # host int[25] score matrix or NULL
         _P,                          # cudaStream_t
     ], ctypes.c_int),
     "gather_spans_launch": ([_P, _LL, _P, _P, _I, _I, _P], ctypes.c_int),

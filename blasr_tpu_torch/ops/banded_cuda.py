@@ -6,11 +6,20 @@ the S anti-diagonal steps looped inside the block) or raises; on CPU
 tensors it runs the plain version, ``ops/banded_align.banded_align_plain``,
 which defines the result bit for bit. The quality mode follows ``qual``'s
 dtype (``banded_align.qual_mode``): none, single (uint8) or dual (int16
-holding the uint16 bits). ``launches_by_shape[(W, mode)]`` counts the
-kernel's launches per band width and quality mode.
+holding the uint16 bits). The band follows either the shared schedule
+``qoff`` (S,) or, guided, each item's knots (I, NK) (``knots=``; the kernel
+evaluates ``qoff_from_knots`` per step). ``scores.matrix`` switches the
+substitution score to the 5x5 matrix.
+
+``launches_by_shape[(W, mode)]`` counts the kernel's launches per band
+width and quality mode; ``launches_by_shape[(W, "guided")]`` and
+``[(W, "matrix")]`` count, in addition, the launches with knots and with a
+matrix.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -19,11 +28,14 @@ from blasr_tpu_torch.ops.banded_align import (
     AlignScores,
     BandedResult,
     banded_align_plain,
+    n_knots,
+    qoff_from_knots,
     qual_mode,
 )
 
 BAND_WIDTHS = (32, 64, 128, 256)     # the kernel's template instances
 QUAL_MODES = ("none", "single", "dual")  # and its quality modes, in C order
+SWITCHES = ("guided", "matrix")      # and its band and score switches
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
@@ -40,32 +52,47 @@ def banded_align(
     target: torch.Tensor,   # (I, T) uint8 codes 0..5
     tlo: torch.Tensor,      # (I,) int32
     thi: torch.Tensor,      # (I,) int32
-    qoff: torch.Tensor,     # (S,) int32 shared band schedule
+    qoff: torch.Tensor | None,  # (S,) int32 shared band schedule, or None
     qual: torch.Tensor | None = None,  # (I, L) uint8, or int16 (dual)
     *,
+    knots: torch.Tensor | None = None,  # (I, NK) int32 per-item guided knots
     scores: AlignScores = AlignScores(),
     with_traceback: bool = False,
     band_width: int = 128,
 ) -> BandedResult:
+    if (qoff is None) == (knots is None):
+        raise ValueError("give exactly one band schedule: qoff (shared) or knots (guided)")
+    if qoff is not None and qoff.dim() != 1:
+        raise ValueError("qoff is the shared (S,) schedule; a guided band takes knots=")
+    if scores.matrix is not None and len(scores.matrix) != 25:
+        raise ValueError(f"scores.matrix: expected 25 values, got {len(scores.matrix)}")
+    I, L = query.shape
+    T = target.shape[1]
+    S = L + T - 1
     if not query.is_cuda:
+        sched = qoff if knots is None else qoff_from_knots(knots, S)
         return banded_align_plain(
-            query, qlen, target, tlo, thi, qoff, qual,
+            query, qlen, target, tlo, thi, sched, qual,
             scores=scores, with_traceback=with_traceback, band_width=band_width,
         )
     mode = qual_mode(qual)
     W = band_width
     if W not in BAND_WIDTHS:
         raise ValueError(f"band_width {W} not in {BAND_WIDTHS}")
-    I, L = query.shape
-    T = target.shape[1]
-    S = L + T - 1
     _check("query", query, torch.uint8, (I, L))
     _check("qlen", qlen, torch.int32, (I,))
     _check("target", target, torch.uint8, (I, T))
     _check("tlo", tlo, torch.int32, (I,))
     _check("thi", thi, torch.int32, (I,))
-    _check("qoff", qoff, torch.int32, (S,))
-    tensors = [("qlen", qlen), ("target", target), ("tlo", tlo), ("thi", thi), ("qoff", qoff)]
+    tensors = [("qlen", qlen), ("target", target), ("tlo", tlo), ("thi", thi)]
+    if knots is None:
+        _check("qoff", qoff, torch.int32, (S,))
+        tensors.append(("qoff", qoff))
+        NK = 0
+    else:
+        NK = n_knots(S)
+        _check("knots", knots, torch.int32, (I, NK))
+        tensors.append(("knots", knots))
     if qual is not None:
         _check("qual", qual, qual.dtype, (I, L))
         tensors.append(("qual", qual))
@@ -81,22 +108,34 @@ def banded_align(
     if I == 0:
         return BandedResult(best[0], best[1], best[2], arrows)
     lib = _build.load_library()
+    matrix = (ctypes.c_int * 25)(*scores.matrix) if scores.matrix is not None else None
     err = lib.banded_dp_launch(
         query.data_ptr(), qlen.data_ptr(), target.data_ptr(),
-        tlo.data_ptr(), thi.data_ptr(), qoff.data_ptr(),
+        tlo.data_ptr(), thi.data_ptr(),
+        qoff.data_ptr() if knots is None else None,
+        knots.data_ptr() if knots is not None else None, NK,
         qual.data_ptr() if qual is not None else None, QUAL_MODES.index(mode),
         best.data_ptr(), arrows.data_ptr() if with_traceback else None,
         I, L, T, S, W,
         scores.match, scores.mismatch, scores.n_score,
         scores.insertion, scores.deletion,
-        scores.affine_open, scores.affine_extend,
+        scores.affine_open, scores.affine_extend, matrix,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, f"banded_dp (W={W}, quality {mode})")
+    what = ", ".join(["quality " + mode]
+                     + (["guided"] if knots is not None else [])
+                     + (["matrix"] if matrix is not None else []))
+    _build.check(err, f"banded_dp (W={W}, {what})")
     banded_align.launches += 1
     banded_align.launches_by_shape[(W, mode)] += 1
+    if knots is not None:
+        banded_align.launches_by_shape[(W, "guided")] += 1
+    if matrix is not None:
+        banded_align.launches_by_shape[(W, "matrix")] += 1
     return BandedResult(best[0], best[1], best[2], arrows)
 
 
 banded_align.launches = 0
-banded_align.launches_by_shape = {(w, m): 0 for w in BAND_WIDTHS for m in QUAL_MODES}
+banded_align.launches_by_shape = {
+    (w, m): 0 for w in BAND_WIDTHS for m in QUAL_MODES + SWITCHES
+}

@@ -19,6 +19,8 @@ from typing import NamedTuple
 import torch
 
 from blasr_tpu_torch.ops.banded_align import (
+    KNOT_LOG2,
+    KNOT_SPACING,
     QOFF_NUM_HALF,
     QOFF_SHIFT,
     SRC_DIAG,
@@ -61,13 +63,17 @@ def walk_arrows_device(
     qoff_params: tuple[int, int, int] | None = None,  # (diag, W_band, L_q)
     qoff_num: torch.Tensor | int | None = None,
     with_moves: bool = True,
+    qoff_knots: torch.Tensor | None = None,  # (I, NK) per-item guided knots
 ) -> DeviceTraceback:
     """Walk the I paths of an (S, I, W) arrow tensor, one per item.
 
-    With ``qoff_params`` the band offsets are evaluated in closed form: the
-    drift-slope schedule of ``qoff_num`` (slope 0 when it is None); without
-    it they are read from ``qoff``. ``with_moves=False`` skips the
-    boundary-code matrix (the -m 4 path needs only the stats).
+    With ``qoff_knots`` each item's band offsets are its knot lerp, the
+    formula of ``banded_align.qoff_from_knots`` evaluated per (item, step)
+    (two knot gathers per evaluation). Otherwise, with ``qoff_params`` they
+    are evaluated in closed form: the drift-slope schedule of ``qoff_num``
+    (slope 0 when it is None); without either they are read from ``qoff``.
+    ``with_moves=False`` skips the boundary-code matrix (the -m 4 path
+    needs only the stats).
     """
     S, I, W = arrows.shape
     dev = arrows.device
@@ -75,7 +81,23 @@ def walk_arrows_device(
     ii = torch.arange(I, dtype=torch.int64, device=dev)
     flat = arrows.reshape(-1).view(torch.int16)
 
-    if qoff_params is not None:
+    if qoff_knots is not None:
+        NK = qoff_knots.shape[1]
+        kflat = qoff_knots.to(i32).reshape(-1)
+        base = ii * NK
+
+        def qoff_at(a):
+            ac_ = torch.clamp(a, 0, S - 1)
+            j = (ac_ >> KNOT_LOG2).long()
+            r = ac_ & (KNOT_SPACING - 1)
+            k0 = kflat[base + j]
+            k1 = kflat[base + torch.clamp(j + 1, max=NK - 1)]
+            return ((k0 * (KNOT_SPACING - r) + k1 * r) >> KNOT_LOG2).to(i32)
+
+        def s1_at(a):
+            return qoff_at(a) - qoff_at(a - 1)
+
+    elif qoff_params is not None:
         diag0, Wb, Lq = qoff_params
         hi = max(0, Lq - Wb)
         numc = torch.as_tensor(

@@ -1,16 +1,18 @@
 """Per-batch mapping step on the device.
 
 Port of ``blasr_tpu.pipeline.mapper`` for the suffix-array index with the
-direct 4^k tables, with or without quality values, and no guided bands.
-One batch of padded reads goes through, in order:
+direct 4^k tables, with or without quality values, with or without guided
+bands (``-useGuidedAlign``) and a score matrix (``-scoreMatrix``). One
+batch of padded reads goes through, in order:
 
   1. reverse complements appended -> (2B, L) strand-expanded batch (and
      the quality rows reversed, when the batch carries them)
   2. anchors through the direct count tables          (ops/anchors.py)
   3. candidate windows per read-strand                 (ops/candidates.py)
   4. chain evidence, admission, the top CD windows per read across strands
-  5. drift-slope band schedule and per-item centring, then the genome
-     window and query row of every DP item (ops/gather.py kernels)
+  5. drift-slope band schedule and per-item centring, the per-item guided
+     knots (guided bands), then the genome window and query row of every
+     DP item (ops/gather.py kernels)
   6. one banded DP with arrows over every item         (ops/banded_cuda.py)
   7. traceback walk on the device                      (ops/traceback_device.py)
   8. containment filters, best_n selection and MAPQ    (ops/mapqv.py)
@@ -37,6 +39,9 @@ from blasr_tpu_torch.ops.banded_align import (
     QV_NEUTRAL,
     QV_NEUTRAL_DUAL,
     AlignScores,
+    clamp_knots_to_shared,
+    guided_max_dev,
+    make_qoff_knots,
     make_qoff_num,
 )
 from blasr_tpu_torch.ops.banded_cuda import banded_align
@@ -346,10 +351,6 @@ def map_batch_impl(
         raise NotImplementedError("-pvaltype 2/3 ranking is not ported yet")
     if params.exact_chain:
         raise NotImplementedError("exact_chain ranking is not ported yet")
-    if params.guided_band:
-        raise NotImplementedError("guided bands are not ported yet")
-    if params.score_matrix is not None:
-        raise NotImplementedError("-scoreMatrix is not ported yet")
     dev = codes.device
     B, L = codes.shape
     C = params.n_candidates
@@ -429,19 +430,23 @@ def map_batch_impl(
         deletion=params.deletion_score,
         affine_open=params.affine_open,
         affine_extend=params.affine_extend,
+        matrix=params.score_matrix,
     )
 
     mark("candidates")
 
     # ---- drift-slope band schedule and per-item window centring ----
     pad2 = params.target_pad // 2
-    if W < 128:
+    guided = params.guided_band and L >= W
+    if W < 128 or guided:
+        # the item's anchor rows serve the slope fit and the knots alike
         aqv_pack = (aq << 1) | avalid.to(I32)
         A_ = at.shape[1]
         fused = gather_rows(torch.cat([at, aqv_pack], dim=1).contiguous(), row)
         atr = fused[:, :A_]
         aqr = fused[:, A_:] >> 1
         avr = (fused[:, A_:] & 1).bool()
+    if W < 128:
         din = atr - aqr - d0[:, None]
         m = avr & (torch.abs(din) <= CW)
         mf = m.to(torch.float32)
@@ -480,6 +485,22 @@ def map_batch_impl(
         qoff_num = torch.tensor(QOFF_NUM_HALF, dtype=I32, device=dev)
     qoff = make_qoff_num(L, T, W, pad2, qoff_num)
 
+    # ---- per-item guided band (the reference's per-read guide,
+    # GuidedAlign.h:104): each item's band follows knots lerped through its
+    # own member anchors, clamped to the reference's distance from the
+    # shared line ----
+    knots = None
+    if guided:
+        din_g = atr - aqr - d0[:, None]
+        m_g = avr & (torch.abs(din_g) <= CW) & cvalid[:, None]
+        # an anchor (q, t_loc = din + q + pad2) sits on anti-diagonal
+        # a = 2q + din + pad2 of its window
+        knots = make_qoff_knots(
+            2 * aqr + din_g + pad2, aqr - W // 2, m_g, L + T - 1, L, W,
+            diag=pad2, num=qoff_num,
+        )
+        knots = clamp_knots_to_shared(knots, qoff, W, max_dev=guided_max_dev(W))
+
     t0f = (d0 - pad2).to(I32)                                  # (I,) global
 
     # ---- target windows from the nibble-packed genome ----
@@ -511,8 +532,9 @@ def map_batch_impl(
 
     # ---- one DP pass with arrows over every candidate ----
     res1 = banded_align(
-        qitems.contiguous(), qlens, tcodes.contiguous(), tlo, thi, qoff, quitems,
-        scores=scores_cfg, with_traceback=True, band_width=W,
+        qitems.contiguous(), qlens, tcodes.contiguous(), tlo, thi,
+        qoff if knots is None else None, quitems,
+        knots=knots, scores=scores_cfg, with_traceback=True, band_width=W,
     )
     cscore = torch.where(cvalid, res1.score, 0)
     mark("dp")
@@ -521,6 +543,7 @@ def map_batch_impl(
     tb = walk_arrows_device(
         res1.arrows, qoff, res1.best_a, res1.best_w, cscore,
         qoff_params=(pad2, W, L), qoff_num=qoff_num, with_moves=emit_moves,
+        qoff_knots=knots,
     )
 
     mark("walk")

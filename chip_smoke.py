@@ -14,21 +14,35 @@ Phases, each of which must pass:
      bit, at the main path's shapes: the banded DP at W = 32, 64, 128, 256
      with I = 512 items and buckets L = 1024 and 3328, without quality
      values on simulated read windows and in both quality modes (single
-     uint8, dual uint16 with bytes >= 128) on CLR reads; the span and row
-     gathers at the bench shapes; each with its CUDA-event time, its bound
-     and, where one PyTorch call computes the same function, that call's
-     time;
+     uint8, dual uint16 with bytes >= 128) on CLR reads; its guided mode
+     (per-item knots that wander off the shared line up to the clamp) at
+     W = 32, 64, 128, 256 (L = 1024) and W = 32, 128 (L = 3328) with
+     single quality; its matrix mode (a negative off-diagonal) at W = 32
+     and 256, L = 1024, without and with quality; the span and row gathers
+     at the bench shapes and the span gather at the TPU microbenchmark's
+     shapes (scripts/micro_dma.py); each with its CUDA-event time, its
+     bound and, where one PyTorch call computes the same function, that
+     call's time;
   4. the FASTA bench corpus through run_mapping on the card at the bench
      operating point (warm-up, timed runs with every kernel launch counter
      reset just before the first, a per-stage clock run), then the user's
      CLI on 256 reads and a torch.profiler trace of one batch;
-  5. the CLR FASTQ corpus through run_mapping: warm-up, three timed runs,
+  5. the CLR FASTQ corpus through run_mapping: warm-up, two timed runs,
      the per-stage clock; accuracy within 0.01 of the JAX package's CPU
      figure on the same corpus; the single-quality DP kernel launched at
      W = 32 and at W >= 128 (band escalation);
   6. 256 CLR reads written as SAM with iq/sq tracks through the user's CLI:
      the same -m 4 lines as run_mapping in this process, and the
-     dual-stream DP kernel launched in both.
+     dual-stream DP kernel launched in both;
+  7. the CLR FASTQ corpus with -useGuidedAlign on the CLI's parameters
+     (one timed run, the per-stage clock): accuracy within 0.01 of the JAX
+     package's CPU figure for the same flags, the guided DP kernel at
+     W = 32 and W = 128, the walk's launches on one batch against the
+     unguided walk; the CLI on 256 of those reads prints the lines of
+     run_mapping;
+  8. -scoreMatrix through the CLI on the 256 FASTA reads: a matrix equal
+     to the default scores prints phase 4's lines, a transition-favouring
+     matrix prints the lines of run_mapping and runs the matrix kernel.
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and the exit code is not 0. Needs one CUDA card.
@@ -46,12 +60,28 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DP_SHAPES = [(W, L) for L in (1024, 3328) for W in (32, 64, 128, 256)]
+GUIDED_DP_SHAPES = [(32, 1024), (64, 1024), (128, 1024), (256, 1024), (32, 3328), (128, 3328)]
+MATRIX_DP_SHAPES = [(32, 1024), (256, 1024)]
 DP_ITEMS = 512          # B = 256 reads x 2 DP windows
 MAIN_DP_SHAPE = (32, 1024)
+DP_PAD2 = 128           # target_pad // 2 at the bench operating point
+DP_NUM = round(65536 / 1.96)  # the ins-heavy drift of the simulated error models
+# transitions (A<->G, C<->T) at -2: a negative off-diagonal, so local
+# alignments can start on a mismatch
+TRANSITION_MATRIX = (-5, 6, -2, 6, 0, 6, -5, 6, -2, 0, -2, 6, -5, 6, 0,
+                     6, -2, 6, -5, 0, 0, 0, 0, 0, 0)
+# the default scores as a matrix (match -5, mismatch 6, N 0)
+DEFAULT_MATRIX = tuple(0 if i == 4 or j == 4 else (-5 if i == j else 6)
+                       for i in range(5) for j in range(5))
+# the span gather at the TPU microbenchmark's shapes (scripts/micro_dma.py)
+MICRO_DMA_SPANS = (162, 482)
 MIN_ACCURACY = 0.98     # FASTA bench corpus: the JAX package's steady state is 0.982
 # accuracy_true_locus of the JAX package on the whole CLR FASTQ corpus, on
 # the CPU (tools/jax_clr_accuracy.py), and the corpus it was measured on
 JAX_CLR_ACCURACY = 0.966
+# the same with -useGuidedAlign on CLI_FLAGS (tools/jax_guided_accuracy.py;
+# 1955 records, 45 unmapped)
+JAX_GUIDED_ACCURACY = 0.9655
 CLR_ACCURACY_SLACK = 0.01
 CLR_FASTQ_MD5 = "897fb8881c92d3fc33874e9a065602f7"
 # H100 SXM peaks: HBM 3.35 TB/s; INT32 ALU 132 SMs x 64 lanes x 1.98 GHz
@@ -63,9 +93,19 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # formula (clip, multiply, add, divide, max for two costs) in the quality
 # modes and the byte split in the dual mode
 DP_OPS_PER_CELL = {"none": 79, "single": 92, "dual": 94}
+# with a score matrix: the range check, clamp, index and table read replace
+# the match/mismatch/N select, and the scaled mismatch cost goes
+DP_OPS_PER_CELL_MATRIX = {"none": 78, "single": 85, "dual": 86}
+# per step and item in the guided mode: the knot lerp (two knot reads, two
+# multiplies, an add, two shifts, a mask, a subtract, a min)
+GUIDED_OPS_PER_STEP = 10
 QUAL_MODES = ("none", "single", "dual")
 KERNEL_META = {
     "banded_dp": ("blasr_tpu_torch/csrc/banded_dp.cu", "blasr_tpu/ops/banded_pallas.py:716"),
+    "banded_dp[guided]": ("blasr_tpu_torch/csrc/banded_dp.cu",
+                          "blasr_tpu/ops/banded_pallas.py:289"),
+    "banded_dp[matrix]": ("blasr_tpu_torch/csrc/banded_dp.cu",
+                          "blasr_tpu/ops/banded_pallas.py:555"),
     "gather_spans": ("blasr_tpu_torch/csrc/gather.cu", "blasr_tpu/ops/dma_gather.py:38"),
     "gather_rows": ("blasr_tpu_torch/csrc/gather.cu", "blasr_tpu/ops/dma_gather.py:127"),
 }
@@ -103,13 +143,20 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def dp_bound(I: int, L: int, T: int, W: int, mode: str, traceback: bool = True):
+def dp_bound(I: int, L: int, T: int, W: int, mode: str, traceback: bool = True,
+             guided: bool = False, matrix: bool = False):
     S = L + T - 1
     qual_bytes = {"none": 0, "single": 1, "dual": 2}[mode] * I * L
-    n_bytes = I * L + I * T + 3 * 4 * I + 4 * S + qual_bytes + 3 * 4 * I
+    from blasr_tpu_torch.ops.banded_align import n_knots
+
+    sched_bytes = 4 * I * n_knots(S) if guided else 4 * S
+    n_bytes = I * L + I * T + 3 * 4 * I + sched_bytes + qual_bytes + 3 * 4 * I
     if traceback:
         n_bytes += 2 * S * I * W
-    return bound(n_bytes, DP_OPS_PER_CELL[mode] * S * I * W)
+    per_cell = (DP_OPS_PER_CELL_MATRIX if matrix else DP_OPS_PER_CELL)[mode]
+    n_ops = per_cell * S * I * W + (GUIDED_OPS_PER_STEP * S * I if guided else 0)
+    return bound(n_bytes, n_ops)
+
 
 
 def dp_inputs(windows, W: int, L: int, mode: str):
@@ -123,19 +170,16 @@ def dp_inputs(windows, W: int, L: int, mode: str):
 
     from blasr_tpu_torch.ops.banded_align import make_qoff_num
 
-    pad2 = 128
     Q, qlen, Tg, qual = windows
     T = Tg.shape[1]
     dev = torch.device("cuda")
-    # the ins-heavy drift of the simulated error models: slope about -0.04
-    num = round(65536 / 1.96)
     args = [
         torch.from_numpy(Q).to(dev),
         torch.from_numpy(qlen).to(dev),
         torch.from_numpy(Tg).to(dev),
         torch.zeros(DP_ITEMS, dtype=torch.int32, device=dev),
         torch.full((DP_ITEMS,), T, dtype=torch.int32, device=dev),
-        make_qoff_num(L, T, W, pad2, num, device=dev),
+        make_qoff_num(L, T, W, DP_PAD2, DP_NUM, device=dev),
     ]
     if mode == "single":
         args.append(torch.from_numpy(qual).to(dev))
@@ -149,56 +193,148 @@ def dp_inputs(windows, W: int, L: int, mode: str):
     return args
 
 
-def check_dp(genome, clr_reads) -> list:
+def dp_windows(genome, clr_reads, L: int, seed: int) -> dict:
+    """Simulated read windows (quality-free DP) and CLR read windows (the
+    quality modes) of one bucket at their true loci."""
+    from blasr_tpu_torch import bench
+
+    plain = bench.simulated_windows(genome, DP_ITEMS, L, pad2=DP_PAD2, seed=seed)
+    return {"none": (*plain, None),
+            "clr": bench.true_locus_windows(genome, clr_reads[:DP_ITEMS], L, pad2=DP_PAD2)}
+
+
+def compare_dp(args, W: int, L: int, mode: str, kind: str, knots=None, scores=None) -> dict:
+    """One DP shape: the kernel against the plain version on the same
+    inputs (max_abs_err over score, best_a, best_w and the arrow words),
+    the kernel's CUDA-event time, the plain version's time and the bound."""
+    import torch
+
+    from blasr_tpu_torch.ops.banded_align import (
+        AlignScores, banded_align_plain, qoff_from_knots,
+    )
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
+
+    scores = scores or AlignScores()
+    T = args[2].shape[1]
+    S = L + T - 1
+    kargs = list(args)
+    if knots is not None:
+        kargs[5] = None
+    got = banded_align(*kargs, knots=knots, scores=scores, with_traceback=True, band_width=W)
+    torch.cuda.synchronize()
+    pargs = list(args)
+    if knots is not None:
+        pargs[5] = qoff_from_knots(knots, S)
+    t0 = time.perf_counter()
+    ref = banded_align_plain(*pargs, scores=scores, with_traceback=True, band_width=W)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = 0
+    for a, b in zip(got[:3], ref[:3]):
+        err = max(err, int((a.long() - b.long()).abs().max()))
+    ga = got.arrows.view(torch.int16).to(torch.int32) & 0xFFFF
+    ra = ref.arrows.view(torch.int16).to(torch.int32) & 0xFFFF
+    err = max(err, int((ga - ra).abs().max()))
+    n_aligned = int((ref.score < 0).sum())
+    del ga, ra, ref, got
+    ms = cuda_ms(lambda: banded_align(*kargs, knots=knots, scores=scores, with_traceback=True,
+                                      band_width=W), reps=3)
+    b_ms, b_by = dp_bound(DP_ITEMS, L, T, W, mode, guided=knots is not None,
+                          matrix=scores.matrix is not None)
+    row = {"W": W, "L": L, "I": DP_ITEMS, "S": S, "mode": mode, "kind": kind,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "items_aligned": n_aligned}
+    log(f"dp[{kind}] W={W} L={L} I={DP_ITEMS} quality {mode}: max_abs_err={err} kernel "
+        f"{ms:.3f} ms plain {plain_ms:.1f} ms bound {b_ms:.4f} ms ({b_by}); "
+        f"{n_aligned} items aligned")
+    if err != 0:
+        raise AssertionError(
+            f"banded_dp[{kind}] kernel disagrees with the plain version at W={W} L={L} "
+            f"quality {mode}")
+    if n_aligned < DP_ITEMS // 2:
+        raise AssertionError(
+            f"only {n_aligned}/{DP_ITEMS} windows aligned at W={W} L={L} quality {mode} ({kind})")
+    return row
+
+
+def check_dp(windows) -> list:
     """The DP kernel against its plain version at every W and L, without
     quality values and in both quality modes."""
+    rows = []
+    for W, L in DP_SHAPES:
+        for mode in QUAL_MODES:
+            args = dp_inputs(windows[L]["none" if mode == "none" else "clr"], W, L, mode)
+            rows.append(compare_dp(args, W, L, mode, "shared"))
+    return rows
+
+
+def check_dp_guided(windows) -> list:
+    """The guided mode with single quality on CLR windows: per-item knots
+    that wander off the shared line as far as the reference's clamp."""
     import torch
 
     from blasr_tpu_torch import bench
-    from blasr_tpu_torch.ops.banded_align import banded_align_plain
-    from blasr_tpu_torch.ops.banded_cuda import banded_align
+    from blasr_tpu_torch.ops.banded_align import KNOT_SPACING, guided_max_dev
 
     rows = []
-    windows = {}
-    for si, (W, L) in enumerate(DP_SHAPES):
-        if L not in windows:
-            plain = bench.simulated_windows(genome, DP_ITEMS, L, pad2=128, seed=100 + si)
-            windows[L] = {
-                "none": (*plain, None),
-                "clr": bench.true_locus_windows(genome, clr_reads[:DP_ITEMS], L, pad2=128),
-            }
-        for mode in QUAL_MODES:
+    for W, L in GUIDED_DP_SHAPES:
+        args = dp_inputs(windows[L]["clr"], W, L, "single")
+        T = args[2].shape[1]
+        knots = bench.deviating_knots(DP_ITEMS, L, T, W, DP_PAD2, DP_NUM, seed=W + L,
+                                      device="cuda")
+        at = torch.clamp(torch.arange(knots.shape[1], device="cuda") * KNOT_SPACING,
+                         max=L + T - 2)
+        dev_max = int((knots - args[5][at][None, :]).abs().max())
+        if not guided_max_dev(W) // 2 <= dev_max <= guided_max_dev(W):
+            raise AssertionError(f"guided knots reach {dev_max}, the clamp is {guided_max_dev(W)}")
+        row = compare_dp(args, W, L, "single", "guided", knots=knots)
+        row["knot_max_deviation"] = dev_max
+        rows.append(row)
+    return rows
+
+
+def check_dp_matrix(windows) -> list:
+    """The matrix mode (TRANSITION_MATRIX) without and with quality."""
+    from blasr_tpu_torch.ops.banded_align import AlignScores
+
+    rows = []
+    for W, L in MATRIX_DP_SHAPES:
+        for mode in ("none", "single"):
             args = dp_inputs(windows[L]["none" if mode == "none" else "clr"], W, L, mode)
-            got = banded_align(*args, with_traceback=True, band_width=W)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ref = banded_align_plain(*args, with_traceback=True, band_width=W)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            err = 0
-            for a, b in zip(got[:3], ref[:3]):
-                err = max(err, int((a.long() - b.long()).abs().max()))
-            ga = got.arrows.view(torch.int16).to(torch.int32) & 0xFFFF
-            ra = ref.arrows.view(torch.int16).to(torch.int32) & 0xFFFF
-            err = max(err, int((ga - ra).abs().max()))
-            n_aligned = int((ref.score < 0).sum())
-            del ga, ra, ref, got
-            ms = cuda_ms(lambda: banded_align(*args, with_traceback=True, band_width=W), reps=3)
-            T = args[2].shape[1]
-            b_ms, b_by = dp_bound(DP_ITEMS, L, T, W, mode)
-            rows.append({"W": W, "L": L, "I": DP_ITEMS, "S": int(args[5].shape[0]),
-                         "mode": mode, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": b_ms, "bound_by": b_by, "items_aligned": n_aligned})
-            log(f"dp W={W} L={L} I={DP_ITEMS} quality {mode}: max_abs_err={err} kernel "
-                f"{ms:.3f} ms plain {plain_ms:.1f} ms bound {b_ms:.4f} ms ({b_by}); "
-                f"{n_aligned} items aligned")
-            if err != 0:
-                raise AssertionError(
-                    f"banded_dp kernel disagrees with the plain version at W={W} L={L} "
-                    f"quality {mode}")
-            if n_aligned < DP_ITEMS // 2:
-                raise AssertionError(
-                    f"only {n_aligned}/{DP_ITEMS} windows aligned at W={W} L={L} quality {mode}")
+            rows.append(compare_dp(args, W, L, mode, "matrix",
+                                   scores=AlignScores(matrix=TRANSITION_MATRIX)))
+    return rows
+
+
+def check_micro_dma() -> list:
+    """K2' (scripts/micro_dma.py:dma_span_gather): the span gather at the
+    TPU microbenchmark's own shapes through K2's kernel, against the plain
+    version and one advanced-index call."""
+    import torch
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.ops.gather import gather_spans, gather_spans_plain
+
+    rows = []
+    for span in MICRO_DMA_SPANS:
+        src, starts = bench.span_gather_inputs(span, device="cuda")
+        I = starts.shape[0]
+        got = gather_spans(src, starts, span)
+        err = int((got.long() - gather_spans_plain(src, starts, span).long()).abs().max())
+        idx = starts.long()[:, None] + torch.arange(span, device="cuda")[None, :]
+        err = max(err, int((got.long() - src[idx].long()).abs().max()))
+        ms = cuda_ms(lambda: gather_spans(src, starts, span), reps=20)
+        pms = cuda_ms(lambda: gather_spans_plain(src, starts, span), reps=20)
+        lms = cuda_ms(lambda: src[idx], reps=20)
+        b_ms, b_by = bound(2 * 4 * I * span + 4 * I, 0)
+        rows.append({"N": int(src.shape[0]), "I": I, "span": span, "max_abs_err": err,
+                     "ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+        log(f"K2' span gather (micro_dma shapes) N={src.shape[0]} I={I} span={span}: "
+            f"max_abs_err={err} kernel {ms:.4f} ms plain {pms:.4f} ms index call "
+            f"{lms:.4f} ms bound {b_ms:.5f} ms")
+        if err != 0:
+            raise AssertionError("gather_spans disagrees at the micro_dma shapes")
     return rows
 
 
@@ -257,9 +393,10 @@ def check_gathers(genome_pad) -> dict:
     return out
 
 
-def run_cli(reads_path: str, genome_fa: str, tag: str) -> tuple[list, dict, float]:
-    """The user's command line on the card, in its own process: (its m4
-    lines, its metrics JSON, seconds with the process start)."""
+def run_cli(reads_path: str, genome_fa: str, tag: str, extra=()) -> tuple[list, dict, float]:
+    """The user's command line on the card with CLI_FLAGS and ``extra``, in
+    its own process: (its m4 lines, its metrics JSON, seconds with the
+    process start)."""
     from blasr_tpu_torch.bench import BENCH_DIR
 
     out_m4 = os.path.join(BENCH_DIR, f"{tag}.m4")
@@ -267,7 +404,7 @@ def run_cli(reads_path: str, genome_fa: str, tag: str) -> tuple[list, dict, floa
     t0 = time.time()
     proc = subprocess.run(
         [sys.executable, "-m", "blasr_tpu_torch.cli.blasr", reads_path, genome_fa,
-         *CLI_FLAGS, "-out", out_m4, "-metrics", out_metrics],
+         *CLI_FLAGS, *extra, "-out", out_m4, "-metrics", out_metrics],
         cwd=HERE, capture_output=True, text=True, timeout=600,
     )
     seconds = time.time() - t0
@@ -280,10 +417,11 @@ def run_cli(reads_path: str, genome_fa: str, tag: str) -> tuple[list, dict, floa
     return lines, metrics, seconds
 
 
-def cli_params(reads_path: str, genome_fa: str):
+def cli_params(reads_path: str, genome_fa: str, extra=()):
     from blasr_tpu_torch.cli.blasr import build_parser, params_from_args
 
-    return params_from_args(build_parser().parse_args([reads_path, genome_fa, *CLI_FLAGS]))
+    return params_from_args(
+        build_parser().parse_args([reads_path, genome_fa, *CLI_FLAGS, *extra]))
 
 
 def check_cli(genome_fa: str, reads, index) -> dict:
@@ -316,7 +454,7 @@ def check_cli(genome_fa: str, reads, index) -> dict:
     log(f"CLI on the card: {len(sub)} FASTA reads -> {len(cli_lines)} m4 lines in {cli_s:.1f} s "
         f"(process included), equal to run_mapping; DP kernel W>=128 launches {n_wide}")
     return {"reads": len(sub), "lines": len(cli_lines), "seconds": cli_s,
-            "dp_wide_launches": n_wide}
+            "dp_wide_launches": n_wide, "path": reads_fa, "m4": cli_lines}
 
 
 def write_sam_with_qvs(path: str, reads) -> None:
@@ -387,10 +525,10 @@ def check_cli_sam(genome_fa: str, clr_reads, index) -> dict:
             "launches": counts}
 
 
-def map_corpus(index, reads, params, n_timed: int) -> dict:
-    """One warm-up run, then ``n_timed`` timed runs (every launch counter
-    reset just before the first, read just after it), then one run with
-    the per-stage clock."""
+def map_corpus(index, reads, params, n_timed: int, warmup: bool = True) -> dict:
+    """One warm-up run (unless ``warmup`` is False), then ``n_timed`` timed
+    runs (every launch counter reset just before the first, read just after
+    it), then one run with the per-stage clock."""
     import torch
 
     from blasr_tpu_torch import bench
@@ -398,10 +536,12 @@ def map_corpus(index, reads, params, n_timed: int) -> dict:
     from blasr_tpu_torch.pipeline.mapper import StageClock
     from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
 
-    t0 = time.time()
-    run_mapping(index, reads, params, device="cuda")
-    torch.cuda.synchronize()
-    warm_s = time.time() - t0
+    warm_s = 0.0
+    if warmup:
+        t0 = time.time()
+        run_mapping(index, reads, params, device="cuda")
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
     walls = []
     for k in range(n_timed):
         met = MappingMetrics()
@@ -425,7 +565,8 @@ def map_corpus(index, reads, params, n_timed: int) -> dict:
     acc = bench.accuracy_true_locus(records, reads)
     log(f"  {len(reads)} reads: reads/s of the timed runs "
         + ", ".join(f"{len(reads) / w:.1f}" for w in walls)
-        + f" (warm-up run {warm_s:.1f} s); records {len(records)}, unmapped {len(unmapped)}, "
+        + (f" (warm-up run {warm_s:.1f} s)" if warmup else " (no warm-up run)")
+        + f"; records {len(records)}, unmapped {len(unmapped)}, "
         f"escalated {met0.escalated_reads}; accuracy_true_locus {acc:.4f}")
     log(f"  host split: dispatch {met0.dispatch_seconds:.3f} s wait {met0.wait_seconds:.3f} s "
         f"finalize {met0.finalize_seconds:.3f} s; batches {met0.n_batches}; buckets {met0.buckets}")
@@ -470,6 +611,160 @@ def profile_batch(index, reads, params) -> dict:
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
             "launches": sum(e.count for e in kern),
             "top": [[e.key[:120], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+def walk_profile(index, reads, params, lo: int = 512, hi: int = 768) -> dict:
+    """torch.profiler over the traceback walk of one batch of reads of
+    ``lo`` + 1 to ``hi`` bp: its kernel launches, device time and wall
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from blasr_tpu_torch.pipeline import mapper
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    sub = [r for r in reads if lo < len(r) <= hi][: params.batch_size]
+    if not sub:
+        raise AssertionError(f"no reads of {lo + 1}-{hi} bp to profile the walk on")
+    walk = mapper.walk_arrows_device
+    out: dict = {}
+
+    def traced(*args, **kw):
+        if out:
+            return walk(*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tb = walk(*args, **kw)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        out.update(reads=len(sub), wall_ms=(time.time() - t0) * 1e3,
+                   launches=sum(e.count for e in kern),
+                   device_ms=sum(e.self_device_time_total for e in kern) / 1e3)
+        return tb
+
+    mapper.walk_arrows_device = traced
+    try:
+        run_mapping(index, sub, params, device="cuda")
+    finally:
+        mapper.walk_arrows_device = walk
+    if not out:
+        raise AssertionError("the walk never ran on the profiled batch")
+    return out
+
+
+def write_fastq_reads(path: str, reads) -> None:
+    from blasr_tpu_torch.io.fastq import write_fastq
+
+    write_fastq(path, [(r.name, r.codes, r.qual) for r in reads])
+
+
+def check_guided(genome_fa: str, reads_fq: str, clr_reads, index, unguided: dict) -> dict:
+    """The CLR FASTQ corpus with -useGuidedAlign on the CLI's parameters:
+    one timed run and the per-stage clock, accuracy against the JAX
+    package's CPU figure, the guided DP at W = 32 and W = 128, the walk's
+    launches on one batch with and without guided bands, and the CLI on 256
+    of the reads printing run_mapping's lines."""
+    import torch
+
+    from blasr_tpu_torch.bench import BENCH_DIR
+    from blasr_tpu_torch.ops import dp_launch_counts, reset_launch_counts
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    gparams = cli_params(reads_fq, genome_fa, ["-useGuidedAlign"])
+    if not gparams.guided_band:
+        raise AssertionError("-useGuidedAlign did not set guided_band")
+    log("CLR FASTQ corpus with -useGuidedAlign (CLI parameters) through run_mapping:")
+    res = map_corpus(index, clr_reads, gparams, n_timed=1, warmup=False)
+    acc = res["accuracy_true_locus"]
+    if abs(acc - JAX_GUIDED_ACCURACY) > CLR_ACCURACY_SLACK:
+        raise AssertionError(f"guided CLR accuracy_true_locus {acc:.4f} not within "
+                             f"{CLR_ACCURACY_SLACK} of the JAX package's {JAX_GUIDED_ACCURACY}")
+    by = res["dp_launches"]
+    if not by.get("W32/guided") or not by.get("W128/guided"):
+        raise AssertionError(f"guided DP kernel not launched at W=32 and W=128: {by}")
+    missing = [k for k, v in res["launches"].items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the guided path: {missing}")
+    walk_u = walk_profile(index, clr_reads, cli_params(reads_fq, genome_fa))
+    walk_g = walk_profile(index, clr_reads, gparams)
+    share = {name: r["stage_seconds"].get("walk", 0.0) / max(sum(r["stage_seconds"].values()), 1e-9)
+             for name, r in (("unguided", unguided), ("guided", res))}
+    log(f"guided CLR accuracy {acc:.4f} (JAX package on the CPU {JAX_GUIDED_ACCURACY}); guided DP "
+        f"launches {by}; walk of one batch of {walk_g['reads']} reads of 513-768 bp: "
+        f"{walk_g['launches']} "
+        f"kernel launches, {walk_g['device_ms']:.1f} ms device, {walk_g['wall_ms']:.1f} ms wall "
+        f"(unguided: {walk_u['launches']}, {walk_u['device_ms']:.1f} ms, {walk_u['wall_ms']:.1f} "
+        f"ms); walk share of the stage clock {100 * share['guided']:.1f}% (unguided CLR cell "
+        f"{100 * share['unguided']:.1f}%)")
+
+    sub = clr_reads[:256]
+    sub_fq = os.path.join(BENCH_DIR, "reads_clr_cli.fastq")
+    write_fastq_reads(sub_fq, sub)
+    cli_lines, cli_metrics, cli_s = run_cli(sub_fq, genome_fa, "reads_clr_guided_cli",
+                                            ["-useGuidedAlign"])
+    reset_launch_counts()
+    recs, _ = run_mapping(index, sub, cli_params(sub_fq, genome_fa, ["-useGuidedAlign"]),
+                          device="cuda")
+    torch.cuda.synchronize()
+    if cli_lines != [format_m4(r) for r in recs]:
+        raise AssertionError("guided CLI output differs from run_mapping on the same reads")
+    log(f"guided CLI on the card: {len(sub)} CLR FASTQ reads -> {len(cli_lines)} m4 lines in "
+        f"{cli_s:.1f} s (process included), equal to run_mapping; DP launches in the CLI "
+        f"{cli_metrics['dpLaunches']}, in run_mapping {dp_launch_counts()}")
+    res.update(walk_batch=walk_g, walk_batch_unguided=walk_u, walk_share=share,
+               cli={"reads": len(sub), "lines": len(cli_lines), "seconds": cli_s,
+                    "dp_launches": cli_metrics["dpLaunches"]})
+    return res
+
+
+def check_matrix(genome_fa: str, reads, index, cli: dict) -> dict:
+    """-scoreMatrix through the CLI on phase 4's 256 FASTA reads: the
+    default scores as a matrix print phase 4's lines; the transition
+    matrix prints run_mapping's lines and runs the matrix kernel."""
+    import torch
+
+    from blasr_tpu_torch.ops import dp_launch_counts, reset_launch_counts
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    def flag(mat):
+        return [f"-scoreMatrix={','.join(map(str, mat))}"]
+
+    same, same_metrics, same_s = run_cli(cli["path"], genome_fa, "reads_cli_matrix_default",
+                                         flag(DEFAULT_MATRIX))
+    if same != cli["m4"]:
+        raise AssertionError("the default scores as a -scoreMatrix change the CLI's lines")
+    if not any(k.endswith("/matrix") for k in same_metrics["dpLaunches"]):
+        raise AssertionError(f"the default-score matrix run launched no matrix DP: "
+                             f"{same_metrics['dpLaunches']}")
+    lines, metrics, secs = run_cli(cli["path"], genome_fa, "reads_cli_matrix",
+                                   flag(TRANSITION_MATRIX))
+    params = cli_params(cli["path"], genome_fa, flag(TRANSITION_MATRIX))
+    if params.score_matrix != TRANSITION_MATRIX:
+        raise AssertionError(f"-scoreMatrix parsed as {params.score_matrix}")
+    reset_launch_counts()
+    recs, _ = run_mapping(index, reads[: cli["reads"]], params, device="cuda")
+    torch.cuda.synchronize()
+    by = dp_launch_counts()
+    launches = sum(n for k, n in by.items() if k.endswith("/matrix"))
+    cli_launches = sum(n for k, n in metrics["dpLaunches"].items() if k.endswith("/matrix"))
+    if lines != [format_m4(r) for r in recs]:
+        raise AssertionError("CLI output with -scoreMatrix differs from run_mapping")
+    if launches == 0 or cli_launches == 0:
+        raise AssertionError(f"matrix DP kernel not launched: here {by}, CLI "
+                             f"{metrics['dpLaunches']}")
+    if lines == cli["m4"]:
+        raise AssertionError("the transition matrix left every line as it was")
+    log(f"-scoreMatrix on the card: the default scores as a matrix print phase 4's "
+        f"{len(same)} lines ({same_s:.1f} s); the transition matrix prints {len(lines)} lines "
+        f"equal to run_mapping ({secs:.1f} s), {sum(a != b for a, b in zip(lines, cli['m4']))} "
+        f"of them changed; DP launches in run_mapping {by}, in the CLI {metrics['dpLaunches']}")
+    return {"reads": cli["reads"], "lines": len(lines), "default_lines_equal": True,
+            "seconds": [same_s, secs], "launches": launches, "dp_launches": by,
+            "cli_dp_launches": metrics["dpLaunches"],
+            "default_cli_dp_launches": same_metrics["dpLaunches"]}
 
 
 def run(out_path: str | None) -> int:
@@ -525,17 +820,23 @@ def run(out_path: str | None) -> int:
         f"FASTQ reads (md5 {fq_md5})")
 
     # ---- phase 3: kernels against their plain versions ----
-    dp_rows = check_dp(index.genome, clr_reads)
+    windows = {L: dp_windows(index.genome, clr_reads, L, seed=100 + 4 * i)
+               for i, L in enumerate((1024, 3328))}
+    dp_rows = check_dp(windows)
+    guided_rows = check_dp_guided(windows)
+    matrix_rows = check_dp_matrix(windows)
+    del windows
     t0 = time.time()
     di = make_device_index(index, params, "cuda")
     torch.cuda.synchronize()
     log(f"device index (direct 4^14 tables) {time.time() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     g_rows = check_gathers(di.genome_pad)
+    micro_rows = check_micro_dma()
 
     # ---- phase 4: the FASTA bench corpus, the CLI, a profile ----
     log("FASTA bench corpus through run_mapping on the card:")
-    fasta = map_corpus(index, reads, params, n_timed=3)
+    fasta = map_corpus(index, reads, params, n_timed=2)
     cli = check_cli(genome_fa, reads, index)
     if fasta["accuracy_true_locus"] < MIN_ACCURACY:
         raise AssertionError(f"accuracy_true_locus {fasta['accuracy_true_locus']:.4f} < {MIN_ACCURACY}")
@@ -546,7 +847,7 @@ def run(out_path: str | None) -> int:
 
     # ---- phase 5: the CLR FASTQ corpus ----
     log("CLR FASTQ corpus through run_mapping on the card:")
-    fastq = map_corpus(index, clr_reads, params, n_timed=3)
+    fastq = map_corpus(index, clr_reads, params, n_timed=2)
     min_acc = JAX_CLR_ACCURACY - CLR_ACCURACY_SLACK
     if fastq["accuracy_true_locus"] < min_acc:
         raise AssertionError(f"CLR accuracy_true_locus {fastq['accuracy_true_locus']:.4f} < "
@@ -565,6 +866,12 @@ def run(out_path: str | None) -> int:
 
     # ---- phase 6: the CLI on SAM reads with iq/sq tracks ----
     sam = check_cli_sam(genome_fa, clr_reads, index)
+
+    # ---- phase 7: guided bands on the CLR FASTQ corpus ----
+    guided = check_guided(genome_fa, reads_fq, clr_reads, index, fastq)
+
+    # ---- phase 8: -scoreMatrix through the CLI ----
+    matrix = check_matrix(genome_fa, reads, index, cli)
 
     # ---- the kernels line ----
     def dp_row(mode):
@@ -597,6 +904,18 @@ def run(out_path: str | None) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    for name, rows, launches in (
+            ("banded_dp[guided]", guided_rows,
+             sum(n for k, n in guided["dp_launches"].items() if k.endswith("/guided"))),
+            ("banded_dp[matrix]", matrix_rows, matrix["launches"])):
+        row = next(r for r in rows if (r["W"], r["L"]) == MAIN_DP_SHAPE)
+        src, replaces = KERNEL_META[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        })
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel never ran on its path: {kernels}")
     log(f"total {time.time() - t_start:.0f} s")
@@ -605,9 +924,12 @@ def run(out_path: str | None) -> int:
         with open(out_path, "w") as f:
             json.dump({
                 "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-                "host_helpers": index_path, "dp": dp_rows, "gathers": g_rows,
-                "fasta": fasta, "cli": cli, "profile": prof, "fastq": fastq,
-                "cli_sam": sam, "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
+                "host_helpers": index_path, "dp": dp_rows, "dp_guided": guided_rows,
+                "dp_matrix": matrix_rows, "gathers": g_rows, "micro_dma": micro_rows,
+                "fasta": fasta, "cli": {k: v for k, v in cli.items() if k != "m4"},
+                "profile": prof, "fastq": fastq, "cli_sam": sam, "guided": guided,
+                "matrix": matrix, "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
+                "jax_guided_accuracy_cpu": JAX_GUIDED_ACCURACY,
                 "seconds": time.time() - t_start,
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -135,7 +135,17 @@ def test_unported_modes_raise():
     args = _torch(Q, qlen, Tc, tlo, thi, qoff)
     with pytest.raises(ValueError, match="qual"):
         dp_wrapper(*args, torch.from_numpy(Q).int(), band_width=32)    # no quality mode
-    with pytest.raises(NotImplementedError):
-        dp_wrapper(*args[:5], args[5][:, None].repeat(1, 8), band_width=32)  # guided
+    # guided schedules are ported: per-item rows that repeat the shared
+    # schedule give the shared result bit for bit, as in the JAX package
+    shared = tba.banded_align_plain(*args, with_traceback=True, band_width=32)
+    per_item = tba.banded_align_plain(*args[:5], args[5][:, None].repeat(1, 8),
+                                      with_traceback=True, band_width=32)
+    for a, b in zip(shared[:3], per_item[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(shared.arrows.view(torch.int16), per_item.arrows.view(torch.int16))
+    with pytest.raises(ValueError, match="exactly one"):                # qoff and knots
+        dp_wrapper(*args, knots=torch.zeros((8, 4), dtype=torch.int32), band_width=32)
+    with pytest.raises(ValueError, match="shared"):                     # (S, I) via the wrapper
+        dp_wrapper(*args[:5], args[5][:, None].repeat(1, 8), band_width=32)
     with pytest.raises(NotImplementedError):
         tba.banded_align_plain(*args, band_width=32, global_q=True)

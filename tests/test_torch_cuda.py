@@ -74,6 +74,94 @@ def test_banded_dp_quality_modes_match_plain(dev, W, mode):
     assert torch.equal(got.arrows.view(torch.int16).cpu(), ref.arrows.view(torch.int16))
 
 
+def _knots(seed, W, I=64, L=256, T=512):
+    """Guided knots for ``_dp_case``'s windows: anchors along each read's
+    diagonal with a per-item drift and jitter, clamped to the reference's
+    distance from the shared line."""
+    from blasr_tpu_torch.ops.banded_align import (
+        clamp_knots_to_shared, guided_max_dev, make_qoff_knots, make_qoff_num,
+    )
+
+    rng = np.random.default_rng(seed)
+    A = 24
+    aq = np.sort(rng.integers(0, L, (I, A)), axis=1).astype(np.int32)
+    shift = rng.integers(100, 160, (I, 1)) + np.cumsum(rng.integers(-4, 5, (I, A)), axis=1)
+    a_anchor = torch.from_numpy((2 * aq + shift).astype(np.int32))
+    v_anchor = torch.from_numpy((aq - W // 2).astype(np.int32))
+    mask = torch.from_numpy(rng.random((I, A)) < 0.8)
+    knots = make_qoff_knots(a_anchor, v_anchor, mask, L + T - 1, L, W, diag=(T - L) // 2,
+                            num=33437)
+    shared = make_qoff_num(L, T, W, (T - L) // 2, 33437)
+    return clamp_knots_to_shared(knots, shared, W, max_dev=guided_max_dev(W))
+
+
+def _assert_equal_results(got, ref):
+    for name in ("score", "best_a", "best_w"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), name
+    assert torch.equal(got.arrows.view(torch.int16).cpu(), ref.arrows.view(torch.int16))
+
+
+def _qual(mode, I, L, seed):
+    rng = np.random.default_rng(seed)
+    if mode == "none":
+        return None
+    if mode == "single":
+        return torch.from_numpy(rng.integers(0, 64, (I, L)).astype(np.uint8))
+    return torch.from_numpy((rng.integers(0, 256, (I, L)).astype(np.uint16)
+                             | (rng.integers(0, 256, (I, L)).astype(np.uint16) << 8))
+                            .view(np.int16))
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256])
+@pytest.mark.parametrize("mode", ["none", "single", "dual"])
+def test_banded_dp_guided_mode_matches_plain(dev, W, mode):
+    from blasr_tpu_torch.ops.banded_align import banded_align_plain, qoff_from_knots
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
+
+    args = _dp_case(W + 2, W)[:5]
+    knots = _knots(W, W)
+    I, L = args[0].shape
+    q = _qual(mode, I, L, W + 3)
+    S = L + args[2].shape[1] - 1
+    ref = banded_align_plain(*args, qoff_from_knots(knots, S), q, with_traceback=True,
+                             band_width=W)
+    before = banded_align.launches_by_shape[(W, "guided")]
+    got = banded_align(*[a.to(dev) for a in args], None, None if q is None else q.to(dev),
+                       knots=knots.to(dev), with_traceback=True, band_width=W)
+    torch.cuda.synchronize()
+    assert banded_align.launches_by_shape[(W, "guided")] == before + 1
+    _assert_equal_results(got, ref)
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256])
+@pytest.mark.parametrize("mode", ["none", "single"])
+@pytest.mark.parametrize("guided", [False, True])
+def test_banded_dp_matrix_mode_matches_plain(dev, W, mode, guided):
+    from blasr_tpu_torch.ops.banded_align import (
+        AlignScores, banded_align_plain, qoff_from_knots,
+    )
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
+
+    # a negative off-diagonal (A<->C at -2): alignments may start on a mismatch
+    sc = AlignScores(matrix=(-5, -2, 6, 6, 0, -2, -5, 6, 6, 0, 6, 6, -5, 6, 1,
+                             6, 6, 6, -5, 0, 0, 0, 2, 0, 0))
+    args = _dp_case(W + 4, W)
+    I, L = args[0].shape
+    S = L + args[2].shape[1] - 1
+    q = _qual(mode, I, L, W + 5)
+    knots = _knots(W + 1, W) if guided else None
+    sched = qoff_from_knots(knots, S) if guided else args[5]
+    ref = banded_align_plain(*args[:5], sched, q, scores=sc, with_traceback=True, band_width=W)
+    before = banded_align.launches_by_shape[(W, "matrix")]
+    got = banded_align(*[a.to(dev) for a in args[:5]], None if guided else args[5].to(dev),
+                       None if q is None else q.to(dev),
+                       knots=knots.to(dev) if guided else None,
+                       scores=sc, with_traceback=True, band_width=W)
+    torch.cuda.synchronize()
+    assert banded_align.launches_by_shape[(W, "matrix")] == before + 1
+    _assert_equal_results(got, ref)
+
+
 def test_gather_kernels_match_plain(dev):
     from blasr_tpu_torch.ops.gather import (
         gather_rows, gather_rows_plain, gather_spans, gather_spans_plain,
@@ -131,3 +219,38 @@ def test_mapping_on_the_card_equals_cpu(dev, qual):
     assert gpu[1] == cpu[1]
     assert all(v > 0 for v in launch_counts().values())
     assert banded_align.launches_by_shape[(32, qual or "none")] > 0
+
+
+def test_guided_matrix_mapping_on_the_card_equals_cpu(dev):
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+    from blasr_tpu_torch.io.batching import Read
+    from blasr_tpu_torch.io.seqdb import SeqDB
+    from blasr_tpu_torch.ops import reset_launch_counts
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    rng = np.random.default_rng(13)
+    G = 100_000
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    index = build_index_from_arrays(genome, SeqDB(["ref"], np.array([0, G]), ["0" * 32]), k=10)
+    reads = []
+    for i in range(16):
+        s = int(rng.integers(0, G - 1000))
+        r = genome[s : s + int(rng.integers(200, 900))].copy()
+        r[::19] = (r[::19] + 2) % 4
+        if i % 4 == 1:
+            r = np.concatenate([r[:100], rng.integers(0, 4, 40).astype(np.uint8), r[100:]])
+        reads.append(Read(f"r{i}", r, rng.integers(3, 45, len(r)).astype(np.uint8), i))
+    mat = (-5, 6, -2, 6, 0, 6, -5, 6, -2, 0, -2, 6, -5, 6, 0, 6, -2, 6, -5, 0, 0, 0, 0, 0, 0)
+    params = bench.bench_params(batch_size=8, max_read_len=1024, min_match_length=10,
+                                narrow_band_max=512, guided_band=True, score_matrix=mat)
+    cpu = run_mapping(index, reads, params, device="cpu")
+    reset_launch_counts()
+    gpu = run_mapping(index, reads, params, device="cuda")
+    assert [format_m4(r) for r in gpu[0]] == [format_m4(r) for r in cpu[0]]
+    assert gpu[1] == cpu[1]
+    by_shape = banded_align.launches_by_shape
+    assert by_shape[(32, "guided")] > 0 and by_shape[(128, "guided")] > 0
+    assert by_shape[(32, "matrix")] > 0

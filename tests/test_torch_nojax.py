@@ -1,7 +1,8 @@
 """The port stands alone: subprocesses with ``jax`` and the whole
 ``blasr_tpu`` package blocked import blasr_tpu_torch and map FASTA and
 FASTQ reads end to end on the CPU to -m 4 lines, through the library and
-through the CLI, and no file of the port imports either package."""
+through the CLI (also with ``-useGuidedAlign -scoreMatrix``), and no file
+of the port imports either package."""
 
 import io
 import json
@@ -87,18 +88,25 @@ from blasr_tpu_torch.cli.blasr import main
 argv = sys.argv[1:]
 i = argv.index("--")
 common, runs = argv[:i], argv[i + 1 :]
-for reads, out in zip(runs[::2], runs[1::2]):    # one CLI run per read file
-    assert main([reads, *common, "-out", out]) == 0
+for run in runs:                       # one CLI run each: reads,out[,flags]
+    reads, out, *flags = run.split(",", 2)
+    extra = flags[0].split() if flags else []
+    assert main([reads, *common, *extra, "-out", out]) == 0
 """
 
 CLI_FORMATS = ("fasta", "fastq", "sam")
+# guided bands and a score matrix (transitions at -2), its 25 values
+# comma-separated after '=' since the first one is negative
+GUIDED_MATRIX = ("-useGuidedAlign -scoreMatrix="
+                 "-5,6,-2,6,0,6,-5,6,-2,0,-2,6,-5,6,0,6,-2,6,-5,0,0,0,0,0,0")
 
 
 @pytest.fixture(scope="module")
 def cli_outputs(tmp_path_factory):
     """The CLI of the port, in one subprocess with ``jax`` and
     ``blasr_tpu`` blocked, on the same six reads as FASTA, as FASTQ and as
-    SAM with iq/sq tracks: format -> the lines it wrote."""
+    SAM with iq/sq tracks, and on the FASTA reads with guided bands and a
+    score matrix: run -> the lines it wrote."""
     from blasr_tpu_torch.core.encode import codes_to_seq
     from blasr_tpu_torch.io.fasta import write_fasta
     from blasr_tpu_torch.io.fastq import write_fastq
@@ -119,9 +127,8 @@ def cli_outputs(tmp_path_factory):
         f"{n}\t4\t*\t0\t0\t*\t*\t0\t0\t{codes_to_seq(c)}\t{(q + 33).tobytes().decode()}"
         f"\tiq:Z:{(q[::-1] + 33).tobytes().decode()}\tsq:Z:{(q + 33).tobytes().decode()}\n"
         for n, c, q in reads))
-    runs = []
-    for fmt in CLI_FORMATS:
-        runs += [str(tmp_path / f"r.{fmt}"), str(tmp_path / f"{fmt}.m4")]
+    runs = [f"{tmp_path / f'r.{fmt}'},{tmp_path / f'{fmt}.m4'}" for fmt in CLI_FORMATS]
+    runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'guided_matrix.m4'},{GUIDED_MATRIX}")
     proc = subprocess.run(
         [sys.executable, "-c", CLI_SCRIPT, str(tmp_path / "g.fa"),
          "-m", "4", "-header", "-device", "cpu", "-minMatch", "10",
@@ -129,7 +136,8 @@ def cli_outputs(tmp_path_factory):
         cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    return {fmt: (tmp_path / f"{fmt}.m4").read_text().splitlines() for fmt in CLI_FORMATS}
+    return {run: (tmp_path / f"{run}.m4").read_text().splitlines()
+            for run in (*CLI_FORMATS, "guided_matrix")}
 
 
 def test_cli_writes_m4_with_jax_blocked(cli_outputs):
@@ -141,6 +149,12 @@ def test_cli_maps_quality_reads_with_blasr_tpu_blocked(cli_outputs, fmt):
     _check_cli_lines(cli_outputs[fmt])
     # the quality values scale the scores: not the FASTA result
     assert cli_outputs[fmt] != cli_outputs["fasta"]
+
+
+def test_cli_maps_guided_with_a_matrix_with_blasr_tpu_blocked(cli_outputs):
+    _check_cli_lines(cli_outputs["guided_matrix"])
+    # the matrix scores the same alignments otherwise
+    assert cli_outputs["guided_matrix"] != cli_outputs["fasta"]
 
 
 def _check_cli_lines(lines):

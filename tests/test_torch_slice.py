@@ -122,9 +122,11 @@ def test_unported_options_raise(corpus):
     for kw in (dict(best_n=2), dict(sensitive_retry=True), dict(adaptive_cd=True)):
         with pytest.raises(NotImplementedError):
             run_mapping(index, reads[:2], dataclasses.replace(BASE, **kw), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tmap.Mapper(index, dataclasses.replace(BASE, guided_band=True), device="cpu").map_batch(
-            np.full((8, 1024), 4, np.uint8), np.zeros(8, np.int32))
+    # guided bands are ported: a batch of empty reads maps to no alignment
+    res = tmap.Mapper(index, dataclasses.replace(BASE, guided_band=True), device="cpu").map_batch(
+        np.full((8, 1024), 4, np.uint8), np.zeros(8, np.int32))
+    host = tmap.unpack_result(res, BASE.dp_candidates)
+    assert (res.i2, res.b) == (8, 8) and not host.sel_valid.any()
 
 
 def test_cuda_mapper_refuses_without_a_card(corpus, monkeypatch):

@@ -25,20 +25,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reads", type=int, default=2000)
-    args = ap.parse_args()
-
-    from blasr_tpu.index.artifacts import load_index
-    from blasr_tpu.io.batching import read_records
+def ensure_clr_corpus() -> tuple[str, str]:
+    """The bench genome and the CLR FASTQ corpus under benchdata/, written
+    by the JAX package's simulator and writers when missing; their paths."""
     from blasr_tpu.io.fasta import read_fasta, write_fasta
     from blasr_tpu.io.fastq import write_fastq
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline import runner
-    from blasr_tpu.sim import (
-        ErrorModel, parse_truth, simulate_genome, simulate_reads_alchemy,
-    )
+    from blasr_tpu.sim import ErrorModel, simulate_genome, simulate_reads_alchemy
 
     bench_dir = os.path.join(REPO, "benchdata")
     os.makedirs(bench_dir, exist_ok=True)
@@ -50,6 +42,21 @@ def main() -> int:
         g = read_fasta(genome_fa)[0][1]
         reads, _ = simulate_reads_alchemy(g, ErrorModel.published_clr(), 2000, seed=13)
         write_fastq(reads_fq, [(r.name, r.codes, r.qual) for r in reads])
+    return genome_fa, reads_fq
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reads", type=int, default=2000)
+    args = ap.parse_args()
+
+    from blasr_tpu.index.artifacts import load_index
+    from blasr_tpu.io.batching import read_records
+    from blasr_tpu.params import MappingParams
+    from blasr_tpu.pipeline import runner
+    from blasr_tpu.sim import parse_truth
+
+    genome_fa, reads_fq = ensure_clr_corpus()
     reads = read_records(reads_fq)[: args.reads]
     index = load_index(genome_fa, k=14)
     # the operating point of blasr_tpu_torch.bench.bench_params
