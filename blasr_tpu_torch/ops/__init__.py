@@ -20,9 +20,10 @@ def kernel_wrappers() -> dict:
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_shape"):
-            for key in fn.launches_by_shape:
-                fn.launches_by_shape[key] = 0
+        for by in ("launches_by_shape", "launches_by_path"):
+            counts = getattr(fn, by, {})
+            for key in counts:
+                counts[key] = 0
 
 
 def launch_counts() -> dict:

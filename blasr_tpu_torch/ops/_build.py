@@ -56,7 +56,7 @@ _SIGNATURES = {
         _P,                          # cudaStream_t
     ], ctypes.c_int),
     "gather_spans_launch": ([_P, _LL, _P, _P, _I, _I, _P], ctypes.c_int),
-    "gather_rows_launch": ([_P, _I, _I, _P, _P, _I, _P], ctypes.c_int),
+    "gather_rows_launch": ([_P, _I, _I, _P, _P, _I, _I, _P], ctypes.c_int),  # ... vec, stream
     "bn_sais_i32": ([_P, ctypes.c_int32, _P], ctypes.c_int),
     "bn_sais_i64": ([_P, ctypes.c_int64, _P], ctypes.c_int),
     "bn_encode_strip": ([ctypes.c_char_p, ctypes.c_int64, _P], ctypes.c_int64),

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 BIG = 2**30
@@ -190,19 +191,86 @@ def chain_stats(
     )
 
 
+# XLA's CPU log of float32, which the JAX mapper runs: the Cephes
+# polynomial of XLA's CPU backend (Eigen's plog), with the multiply-adds
+# that LLVM fuses into single-rounding multiply-adds. torch.log and
+# torch.log2 round differently in the last bit for about one input in ten.
+_LOG_P = tuple(float(np.float32(p)) for p in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1 = float(np.float32(-2.12194440e-4))
+_LOG_Q2 = float(np.float32(0.693359375))
+_SQRTHF = float(np.float32(0.707106781186547524))
+_MIN_NORMAL = float(np.float32(2.0**-126))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add. The product
+    of two float32 values is exact in float64. Their sum with c is rounded
+    to odd in float64: an inexact sum (its error comes from a TwoSum) whose
+    last bit is even moves one step towards the exact value. Rounding to
+    odd at 53 bits and then to nearest at 24 bits is the correct rounding,
+    also where the float64 sum alone would land on a float32 midpoint."""
+    if isinstance(a, torch.Tensor):
+        a = a.double()
+    if isinstance(c, torch.Tensor):
+        c = c.double()
+    p = a * b
+    s = p + c
+    pb = s - p
+    err = (p - (s - pb)) + (c - pb)
+    bits = s.view(torch.int64)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & ((bits & 1) == 0), bits + step, bits)
+    return bits.view(torch.float64).float()
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of positive float32 ``x``, bit for bit as XLA's CPU
+    backend computes it (finite positive inputs: the mapper's expected hit
+    counts). Plain IEEE float32/float64 operations and bit moves, so the
+    CPU and the card give the same bits."""
+    p = _LOG_P
+    x = torch.clamp(x, min=_MIN_NORMAL)
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).to(torch.float32) + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)   # mantissa in [0.5, 1)
+    small = m < _SQRTHF
+    tmp = torch.where(small, m, 0.0)
+    m = m - 1.0
+    e = e - small.to(torch.float32)
+    m = m + tmp
+    x2 = m * m
+    x3 = x2 * m
+    y = _fma(_fma(m, p[0], p[1]), m, p[2])
+    y1 = _fma(_fma(m, p[3], p[4]), m, p[5])
+    y2 = _fma(_fma(m, p[6], p[7]), m, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, _LOG_Q1 * e)
+    m = m - x2 * 0.5
+    m = m + y
+    return m + _LOG_Q2 * e
+
+
 def anchor_weights(
     nhits: torch.Tensor, valid: torch.Tensor, genome_len: int, win: int, pval_type: int
 ) -> torch.Tensor:
     """Per-anchor evidence weight: -log2 of the expected random hits inside
-    the window (pvaltype 0/1), plain count (2) or 1/nhits (3)."""
+    the window (pvaltype 0/1), plain count (2) or 1/nhits (3).
+
+    pvaltype 0/1 follows the JAX function as the mapper runs it, under
+    ``jax.jit``: XLA folds ``* win / G`` into one multiply by the float32
+    constant ``win * (1 / G)``, and ``log2`` into ``log`` times the float32
+    constant ``1 / log(2)``."""
     nh = torch.clamp(nhits, min=1).to(torch.float32)
     if pval_type == 2:
         w = torch.ones_like(nh)
     elif pval_type == 3:
         w = 1.0 / nh
     else:
-        # a full-tensor divisor keeps the division exactly rounded (a
-        # scalar divisor may become a multiply by its reciprocal)
-        expect = (nh * float(win)) / torch.full_like(nh, float(max(genome_len, 1)))
-        w = torch.clamp(-torch.log2(expect), min=0.5)
+        f32 = np.float32
+        per_hit = float(f32(win) * (f32(1) / f32(max(genome_len, 1))))
+        inv_ln2 = float(f32(1) / f32(np.log(2.0)))
+        w = torch.clamp(-(xla_log(nh * per_hit) * inv_ln2), min=0.5)
     return torch.where(valid, w, 0.0)

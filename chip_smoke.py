@@ -19,27 +19,32 @@ Phases, each of which must pass:
      W = 32, 64, 128, 256 (L = 1024) and W = 32, 128 (L = 3328) with
      single quality; its matrix mode (a negative off-diagonal) at W = 32
      and 256, L = 1024, without and with quality; the span and row gathers
-     at the bench shapes and the span gather at the TPU microbenchmark's
-     shapes (scripts/micro_dma.py); each with its CUDA-event time, its
+     at the bench shapes (the row gather in its int4 and scalar instances)
+     and the span gather at the TPU microbenchmark's shapes
+     (scripts/micro_dma.py); each with its per-call time (CUDA events
+     around back-to-back calls), its device time (CUDA-graph replay), its
      bound and, where one PyTorch call computes the same function, that
-     call's time;
+     call's times;
   4. the FASTA bench corpus through run_mapping on the card at the bench
      operating point (warm-up, timed runs with every kernel launch counter
-     reset just before the first, a per-stage clock run), then the user's
-     CLI on 256 reads and a torch.profiler trace of one batch;
+     reset just before the first, a per-stage clock run), every timed
+     run's -m 4 lines equal to the JAX package's read by read
+     (tools/jax_m4_reference.json; with --out the card's lines are written
+     beside it as m4_<corpus>.m4), then the user's CLI on 256 reads and a
+     torch.profiler trace of one batch;
   5. the CLR FASTQ corpus through run_mapping: warm-up, two timed runs,
      the per-stage clock; accuracy within 0.01 of the JAX package's CPU
-     figure on the same corpus; the single-quality DP kernel launched at
-     W = 32 and at W >= 128 (band escalation);
+     figure and the records read by read as in phase 4; the single-quality
+     DP kernel launched at W = 32 and at W >= 128 (band escalation);
   6. 256 CLR reads written as SAM with iq/sq tracks through the user's CLI:
      the same -m 4 lines as run_mapping in this process, and the
      dual-stream DP kernel launched in both;
   7. the CLR FASTQ corpus with -useGuidedAlign on the CLI's parameters
      (one timed run, the per-stage clock): accuracy within 0.01 of the JAX
-     package's CPU figure for the same flags, the guided DP kernel at
-     W = 32 and W = 128, the walk's launches on one batch against the
-     unguided walk; the CLI on 256 of those reads prints the lines of
-     run_mapping;
+     package's CPU figure for the same flags, the records read by read,
+     the guided DP kernel at W = 32 and W = 128, the walk's launches on
+     one batch against the unguided walk; the CLI on 256 of those reads
+     prints the lines of run_mapping;
   8. -scoreMatrix through the CLI on the 256 FASTA reads: a matrix equal
      to the default scores prints phase 4's lines, a transition-favouring
      matrix prints the lines of run_mapping and runs the matrix kernel.
@@ -84,6 +89,10 @@ JAX_CLR_ACCURACY = 0.966
 JAX_GUIDED_ACCURACY = 0.9655
 CLR_ACCURACY_SLACK = 0.01
 CLR_FASTQ_MD5 = "897fb8881c92d3fc33874e9a065602f7"
+# the JAX package's -m 4 lines of each corpus, per read (tools/jax_m4_reference.py),
+# and how many reads of each may differ from them on the card
+M4_REFERENCE = os.path.join(HERE, "tools", "jax_m4_reference.json")
+RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0}
 # H100 SXM peaks: HBM 3.35 TB/s; INT32 ALU 132 SMs x 64 lanes x 1.98 GHz
 # (Hopper architecture white paper), the rate of the DP's integer work
 HBM_BYTES_PER_S = 3.35e12
@@ -118,8 +127,25 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def m4_digests(lines) -> dict:
+    """{read name: the first 16 hex digits of the sha256 of its -m 4 lines
+    joined by newlines, in output order} from (read name, line) pairs."""
+    by_read: dict = {}
+    for name, line in lines:
+        by_read.setdefault(name, []).append(line)
+    return {name: hashlib.sha256("\n".join(ls).encode()).hexdigest()[:16]
+            for name, ls in by_read.items()}
+
+
+def sorted_sha256(lines) -> str:
+    """sha256 of all -m 4 lines sorted, one per line."""
+    return hashlib.sha256("".join(line + "\n" for line in sorted(lines)).encode()).hexdigest()
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Per-call time of ``fn``: CUDA events around ``reps`` calls made back
+    to back. A call that costs the host more than the device is timed at
+    the host's pace; ``graph_ms`` gives the device's time alone."""
     import torch
 
     for _ in range(warmup):
@@ -133,6 +159,42 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps: int, rounds: int = 1) -> float:
+    """Device time of ``fn`` per call: CUDA events around one replay of a
+    CUDA graph that holds ``reps`` calls, the median over ``rounds``
+    replays. The host's launch work is done at capture, so a replay times
+    the device alone, the gaps between its kernels included. Each wrapper
+    launches onto PyTorch's current stream, which is the capturing
+    stream."""
+    import statistics
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the default stream, as capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    means = []
+    for _ in range(rounds):
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        means.append(e0.elapsed_time(e1) / reps)
+    del graph
+    return statistics.median(means)
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -237,15 +299,18 @@ def compare_dp(args, W: int, L: int, mode: str, kind: str, knots=None, scores=No
     err = max(err, int((ga - ra).abs().max()))
     n_aligned = int((ref.score < 0).sum())
     del ga, ra, ref, got
-    ms = cuda_ms(lambda: banded_align(*kargs, knots=knots, scores=scores, with_traceback=True,
-                                      band_width=W), reps=3)
+    def call():
+        banded_align(*kargs, knots=knots, scores=scores, with_traceback=True, band_width=W)
+
+    ms = cuda_ms(call, reps=3)
+    dev_ms = graph_ms(call, reps=3)
     b_ms, b_by = dp_bound(DP_ITEMS, L, T, W, mode, guided=knots is not None,
                           matrix=scores.matrix is not None)
     row = {"W": W, "L": L, "I": DP_ITEMS, "S": S, "mode": mode, "kind": kind,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "items_aligned": n_aligned}
+           "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "items_aligned": n_aligned}
     log(f"dp[{kind}] W={W} L={L} I={DP_ITEMS} quality {mode}: max_abs_err={err} kernel "
-        f"{ms:.3f} ms plain {plain_ms:.1f} ms bound {b_ms:.4f} ms ({b_by}); "
+        f"{ms:.3f} ms (device {dev_ms:.3f} ms) plain {plain_ms:.1f} ms bound {b_ms:.4f} ms ({b_by}); "
         f"{n_aligned} items aligned")
     if err != 0:
         raise AssertionError(
@@ -306,45 +371,120 @@ def check_dp_matrix(windows) -> list:
     return rows
 
 
+def misaligned(t):
+    """A copy of ``t`` whose base address is 4 bytes past a 16-byte
+    boundary: the row gather takes its scalar instance on it."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+GATHER_REPS, GATHER_ROUNDS = 100, 11  # calls per timed run, runs per median
+
+
+def interleaved_times(fns: dict, device: tuple = ()) -> dict:
+    """Per-call ms (CUDA events) and host us per call (the host's clock
+    around the same calls, issued without a synchronisation) of each
+    function of ``fns`` ({key prefix: function}), over GATHER_REPS calls
+    back to back, their runs taken in turns GATHER_ROUNDS times so that a
+    change in the host's pace falls on all of them alike; the median of
+    each. For the prefixes in ``device`` also the device ms (``graph_ms``).
+    Keys: prefix + "ms", "host_us", "device_ms"."""
+    import statistics
+
+    import torch
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    ms = {k: [] for k in fns}
+    us = {k: [] for k in fns}
+    for _ in range(GATHER_ROUNDS):
+        for k, fn in fns.items():
+            e0.record()
+            t0 = time.perf_counter()
+            for _ in range(GATHER_REPS):
+                fn()
+            t1 = time.perf_counter()
+            e1.record()
+            torch.cuda.synchronize()
+            ms[k].append(e0.elapsed_time(e1) / GATHER_REPS)
+            us[k].append((t1 - t0) / GATHER_REPS * 1e6)
+    out = {}
+    for k in fns:
+        out[k + "ms"] = statistics.median(ms[k])
+        out[k + "host_us"] = statistics.median(us[k])
+        if k in device:
+            out[k + "device_ms"] = graph_ms(fns[k], GATHER_REPS, rounds=5)
+    return out
+
+
+def compare_gather(label: str, calls: dict, shape: dict, n_bytes: int) -> dict:
+    """One gather shape. ``calls`` holds the kernel's call (""), the plain
+    version ("plain_"), the one PyTorch call ("library_") and, for the row
+    gather, its scalar instance ("scalar_"): all give the same words, and
+    each is timed (``interleaved_times``; device ms of all but the plain
+    version) beside the byte bound."""
+    ref = calls["plain_"]().long()
+    err = max(int((fn().long() - ref).abs().max()) for k, fn in calls.items() if k != "plain_")
+    b_ms, b_by = bound(n_bytes, 0)
+    row = {**shape, "max_abs_err": err,
+           **interleaved_times(calls, device=tuple(k for k in calls if k != "plain_")),
+           "bound_ms": b_ms, "bound_by": b_by}
+    scalar = (f"; scalar instance {row['scalar_ms']:.4f}, device {row['scalar_device_ms']:.4f}"
+              if "scalar_" in calls else "")
+    log(f"{label} " + " ".join(f"{k}={v}" for k, v in shape.items())
+        + f": max_abs_err={err} kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}"
+        f"{scalar}) plain {row['plain_ms']:.4f} ms PyTorch call {row['library_ms']:.4f} ms "
+        f"(device {row['library_device_ms']:.4f}) bound {row['bound_ms']:.5f} ms; host us per "
+        f"call {row['host_us']:.2f} (PyTorch call {row['library_host_us']:.2f})")
+    if err != 0:
+        raise AssertionError(f"{label} disagrees with its plain version at {shape}")
+    return row
+
+
+def span_case(src, starts, span: int, label: str) -> dict:
+    """K2 at one shape, the PyTorch call an advanced index on a
+    precomputed clipped index."""
+    import torch
+
+    from blasr_tpu_torch.ops.gather import gather_spans, gather_spans_plain
+
+    N, I = src.shape[0], starts.shape[0]
+    idx = torch.clamp(starts.long()[:, None] + torch.arange(span, device=src.device)[None, :],
+                      0, N - 1)
+    calls = {"": lambda: gather_spans(src, starts, span),
+             "plain_": lambda: gather_spans_plain(src, starts, span),
+             "library_": lambda: src[idx]}
+    return compare_gather(label, calls, {"N": N, "I": I, "span": span}, 2 * 4 * I * span + 4 * I)
+
+
 def check_micro_dma() -> list:
     """K2' (scripts/micro_dma.py:dma_span_gather): the span gather at the
     TPU microbenchmark's own shapes through K2's kernel, against the plain
     version and one advanced-index call."""
-    import torch
-
     from blasr_tpu_torch import bench
-    from blasr_tpu_torch.ops.gather import gather_spans, gather_spans_plain
 
-    rows = []
-    for span in MICRO_DMA_SPANS:
-        src, starts = bench.span_gather_inputs(span, device="cuda")
-        I = starts.shape[0]
-        got = gather_spans(src, starts, span)
-        err = int((got.long() - gather_spans_plain(src, starts, span).long()).abs().max())
-        idx = starts.long()[:, None] + torch.arange(span, device="cuda")[None, :]
-        err = max(err, int((got.long() - src[idx].long()).abs().max()))
-        ms = cuda_ms(lambda: gather_spans(src, starts, span), reps=20)
-        pms = cuda_ms(lambda: gather_spans_plain(src, starts, span), reps=20)
-        lms = cuda_ms(lambda: src[idx], reps=20)
-        b_ms, b_by = bound(2 * 4 * I * span + 4 * I, 0)
-        rows.append({"N": int(src.shape[0]), "I": I, "span": span, "max_abs_err": err,
-                     "ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": b_ms,
-                     "bound_by": b_by})
-        log(f"K2' span gather (micro_dma shapes) N={src.shape[0]} I={I} span={span}: "
-            f"max_abs_err={err} kernel {ms:.4f} ms plain {pms:.4f} ms index call "
-            f"{lms:.4f} ms bound {b_ms:.5f} ms")
-        if err != 0:
-            raise AssertionError("gather_spans disagrees at the micro_dma shapes")
-    return rows
+    return [span_case(*bench.span_gather_inputs(span, device="cuda"), span,
+                      "K2' span gather (micro_dma shapes)") for span in MICRO_DMA_SPANS]
 
 
 def check_gathers(genome_pad) -> dict:
+    """K2 on the device genome words at the DP buckets' spans, starts with
+    clipped element indices at both ends; K3 on the fused anchor rows and
+    the packed query rows' widths, rows clipped at both ends, the PyTorch
+    call ``index_select`` on the clipped rows, the row gather in both its
+    instances (the scalar one on a misaligned copy); each against its plain
+    version."""
     import numpy as np
     import torch
 
-    from blasr_tpu_torch.ops.gather import (
-        gather_rows, gather_rows_plain, gather_spans, gather_spans_plain,
-    )
+    from blasr_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 
     dev = genome_pad.device
     rng = np.random.default_rng(5)
@@ -354,42 +494,28 @@ def check_gathers(genome_pad) -> dict:
         span = (L + 256) // 8 + 2
         starts = rng.integers(0, N - span, DP_ITEMS).astype(np.int32)
         starts[:4] = [-3, -span - 7, N - 1, N + 40]   # clipped element indices
-        st = torch.from_numpy(starts).to(dev)
-        got, ref = gather_spans(genome_pad, st, span), gather_spans_plain(genome_pad, st, span)
-        err = int((got.long() - ref.long()).abs().max())
-        ms = cuda_ms(lambda: gather_spans(genome_pad, st, span), reps=20)
-        pms = cuda_ms(lambda: gather_spans_plain(genome_pad, st, span), reps=20)
-        # one PyTorch call on a precomputed clipped index
-        idx = torch.clamp(st.long()[:, None] + torch.arange(span, device=dev)[None, :], 0, N - 1)
-        lms = cuda_ms(lambda: genome_pad[idx], reps=20)
-        b_ms, b_by = bound(2 * 4 * DP_ITEMS * span + 4 * DP_ITEMS, 0)
-        out["gather_spans"].append({"I": DP_ITEMS, "span": span, "max_abs_err": err,
-                                    "ms": ms, "plain_ms": pms, "library_ms": lms,
-                                    "bound_ms": b_ms, "bound_by": b_by})
-        log(f"gather_spans I={DP_ITEMS} span={span}: max_abs_err={err} kernel {ms:.4f} ms "
-            f"plain {pms:.4f} ms index call {lms:.4f} ms bound {b_ms:.5f} ms")
-        if err != 0:
-            raise AssertionError("gather_spans kernel disagrees with the plain version")
+        out["gather_spans"].append(span_case(genome_pad, torch.from_numpy(starts).to(dev), span,
+                                             "gather_spans"))
     # fused anchor rows (2B, 2A) and packed query rows (2B, L/8)
     for R, Lr in ((512, 256), (512, 1024 // 8), (512, 3328 // 8)):
         src = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (R, Lr)).astype(np.int32)).to(dev)
+        src1 = misaligned(src)
         rows_np = rng.integers(0, R, DP_ITEMS).astype(np.int32)
         rows_np[:2] = [-1, R + 3]                      # clipped rows
         rows = torch.from_numpy(rows_np).to(dev)
-        got, ref = gather_rows(src, rows), gather_rows_plain(src, rows)
-        err = int((got.long() - ref.long()).abs().max())
-        ms = cuda_ms(lambda: gather_rows(src, rows), reps=20)
-        pms = cuda_ms(lambda: gather_rows_plain(src, rows), reps=20)
         rows_c = torch.clamp(rows.long(), 0, R - 1)
-        lms = cuda_ms(lambda: torch.index_select(src, 0, rows_c), reps=20)
-        b_ms, b_by = bound(2 * 4 * DP_ITEMS * Lr + 4 * DP_ITEMS, 0)
-        out["gather_rows"].append({"I": DP_ITEMS, "R": R, "Lr": Lr, "max_abs_err": err,
-                                   "ms": ms, "plain_ms": pms, "library_ms": lms,
-                                   "bound_ms": b_ms, "bound_by": b_by})
-        log(f"gather_rows I={DP_ITEMS} R={R} Lr={Lr}: max_abs_err={err} kernel {ms:.4f} ms "
-            f"plain {pms:.4f} ms index_select {lms:.4f} ms bound {b_ms:.5f} ms")
-        if err != 0:
-            raise AssertionError("gather_rows kernel disagrees with the plain version")
+        calls = {"": lambda: gather_rows(src, rows),
+                 "scalar_": lambda: gather_rows(src1, rows),
+                 "plain_": lambda: gather_rows_plain(src, rows),
+                 "library_": lambda: torch.index_select(src, 0, rows_c)}
+        before = dict(gather_rows.launches_by_path)
+        out["gather_rows"].append(compare_gather(
+            "gather_rows", calls, {"I": DP_ITEMS, "R": R, "Lr": Lr},
+            2 * 4 * DP_ITEMS * Lr + 4 * DP_ITEMS))
+        if gather_rows.launches_by_path[1] - before[1] < 1 or (
+                gather_rows.launches_by_path[4] - before[4] < 1):
+            raise AssertionError(f"gather_rows did not take its int4 and scalar instances: "
+                                 f"{before} -> {gather_rows.launches_by_path}")
     return out
 
 
@@ -533,6 +659,7 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True) -> dict:
 
     from blasr_tpu_torch import bench
     from blasr_tpu_torch.ops import dp_launch_counts, launch_counts, reset_launch_counts
+    from blasr_tpu_torch.output.m4 import format_m4
     from blasr_tpu_torch.pipeline.mapper import StageClock
     from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
 
@@ -542,7 +669,7 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True) -> dict:
         run_mapping(index, reads, params, device="cuda")
         torch.cuda.synchronize()
         warm_s = time.time() - t0
-    walls = []
+    walls, m4_runs = [], []
     for k in range(n_timed):
         met = MappingMetrics()
         if k == 0:
@@ -552,6 +679,7 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True) -> dict:
         recs, unm = run_mapping(index, reads, params, device="cuda", metrics=met)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
+        m4_runs.append(([(r.qname, format_m4(r)) for r in recs], unm))
         if k == 0:
             counts, by_shape = launch_counts(), dp_launch_counts()
             peak = torch.cuda.max_memory_allocated()
@@ -579,7 +707,48 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True) -> dict:
             "records": len(records), "unmapped": len(unmapped),
             "escalated": met0.escalated_reads, "metrics": met0.to_dict(),
             "stage_seconds": stage, "clocked_s": clocked_s, "peak_bytes": peak,
-            "launches": counts, "dp_launches": by_shape}
+            "launches": counts, "dp_launches": by_shape, "m4_runs": m4_runs}
+
+
+def load_m4_reference() -> dict:
+    """The JAX package's per-read -m 4 digests on the three corpora
+    (tools/jax_m4_reference.py writes them on the CPU)."""
+    with open(M4_REFERENCE) as f:
+        return json.load(f)
+
+
+def check_records(corpus: str, res: dict, ref: dict, reads_path: str, out_dir) -> dict:
+    """Every timed run's -m 4 lines against the JAX package's, read by read:
+    a read differs when the digest of its lines differs, when only one side
+    has lines for it, or when only one side reports it unmapped. Writes the
+    first timed run's lines to <out_dir>/m4_<corpus>.m4 when ``out_dir`` is
+    given. Fails above RECORD_DIFF_LIMIT[corpus]."""
+    ref = ref[corpus]
+    with open(reads_path, "rb") as f:
+        md5 = hashlib.md5(f.read()).hexdigest()
+    if md5 != ref["reads_md5"]:
+        raise AssertionError(f"{corpus}: reads md5 {md5} != the reference's {ref['reads_md5']}")
+    runs = res.pop("m4_runs")
+    if out_dir:
+        with open(os.path.join(out_dir, f"m4_{corpus}.m4"), "w") as f:
+            f.writelines(line + "\n" for _, line in runs[0][0])
+    counts = []
+    for k, (lines, unmapped) in enumerate(runs):
+        got = m4_digests(lines)
+        names = set(got) | set(ref["digests"])
+        diff = {n for n in names if got.get(n) != ref["digests"].get(n)}
+        diff |= set(unmapped) ^ set(ref["unmapped"])
+        same_sorted = sorted_sha256([line for _, line in lines]) == ref["sha256_sorted"]
+        counts.append(len(diff))
+        log(f"  -m 4 records against the JAX package's ({corpus}, timed run {k + 1}): "
+            f"{len(diff)} reads differ{': ' + ', '.join(sorted(diff)[:5]) if diff else ''}; "
+            f"{len(lines)} lines (JAX {ref['records']}), sorted sha256 "
+            f"{'equal' if same_sorted else 'differs'}")
+        if len(diff) > RECORD_DIFF_LIMIT[corpus]:
+            raise AssertionError(
+                f"{corpus}: {len(diff)} reads' -m 4 lines differ from the JAX package's (limit "
+                f"{RECORD_DIFF_LIMIT[corpus]}); first {sorted(diff)[:5]}")
+    return {"reads_differing": counts, "limit": RECORD_DIFF_LIMIT[corpus]}
 
 
 def profile_batch(index, reads, params) -> dict:
@@ -803,6 +972,10 @@ def run(out_path: str | None) -> int:
     log(f"host helpers: {index_path}")
 
     # ---- phase 2: corpora and index ----
+    m4_ref = load_m4_reference()
+    out_dir = os.path.dirname(os.path.abspath(out_path)) if out_path else None
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
     t0 = time.time()
     genome_fa, reads_fa = bench.ensure_corpus()
     reads_fq = bench.ensure_fastq_corpus()
@@ -833,10 +1006,12 @@ def run(out_path: str | None) -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     g_rows = check_gathers(di.genome_pad)
     micro_rows = check_micro_dma()
+    del di
 
     # ---- phase 4: the FASTA bench corpus, the CLI, a profile ----
     log("FASTA bench corpus through run_mapping on the card:")
     fasta = map_corpus(index, reads, params, n_timed=2)
+    fasta["records_vs_jax"] = check_records("fasta", fasta, m4_ref, reads_fa, out_dir)
     cli = check_cli(genome_fa, reads, index)
     if fasta["accuracy_true_locus"] < MIN_ACCURACY:
         raise AssertionError(f"accuracy_true_locus {fasta['accuracy_true_locus']:.4f} < {MIN_ACCURACY}")
@@ -848,6 +1023,7 @@ def run(out_path: str | None) -> int:
     # ---- phase 5: the CLR FASTQ corpus ----
     log("CLR FASTQ corpus through run_mapping on the card:")
     fastq = map_corpus(index, clr_reads, params, n_timed=2)
+    fastq["records_vs_jax"] = check_records("clr", fastq, m4_ref, reads_fq, out_dir)
     min_acc = JAX_CLR_ACCURACY - CLR_ACCURACY_SLACK
     if fastq["accuracy_true_locus"] < min_acc:
         raise AssertionError(f"CLR accuracy_true_locus {fastq['accuracy_true_locus']:.4f} < "
@@ -869,6 +1045,7 @@ def run(out_path: str | None) -> int:
 
     # ---- phase 7: guided bands on the CLR FASTQ corpus ----
     guided = check_guided(genome_fa, reads_fq, clr_reads, index, fastq)
+    guided["records_vs_jax"] = check_records("clr_guided", guided, m4_ref, reads_fq, out_dir)
 
     # ---- phase 8: -scoreMatrix through the CLI ----
     matrix = check_matrix(genome_fa, reads, index, cli)
@@ -891,8 +1068,8 @@ def run(out_path: str | None) -> int:
             "route": "cuda", "source": src, "replaces": replaces,
             "launches": dp_launches[mode],
             "max_abs_err": max(r["max_abs_err"] for r in dp_rows if r["mode"] == mode),
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
     for name in ("gather_spans", "gather_rows"):
         row = g_rows[name][0]
@@ -901,8 +1078,9 @@ def run(out_path: str | None) -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": fastq["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in g_rows[name]),
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"],
         })
     for name, rows, launches in (
             ("banded_dp[guided]", guided_rows,
@@ -913,8 +1091,8 @@ def run(out_path: str | None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel never ran on its path: {kernels}")

@@ -2,6 +2,7 @@
 strand expansion against the JAX package (integers bit for bit, float
 weights exactly equal)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -123,6 +124,67 @@ def test_candidates_chain_stats_match_jax(setup):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     for a, b in zip(jr[3], tr[3]):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize(
+    "G,win", [(4_600_000, 128), (60_000, 128), (100_000, 96), (3_000_000_000, 333)]
+)
+def test_anchor_weights_match_the_jitted_jax_function(G, win):
+    """Every hit count 0-100,000 at the bench genome's size and others: the
+    weights equal the JAX function's under jax.jit, as the JAX mapper runs
+    it (XLA's folded constants and its CPU log), bit for bit."""
+    nh = np.arange(0, 100_001, dtype=np.int32)
+    valid = np.ones(nh.shape, bool)
+    valid[::7] = False
+    ref = jax.jit(jcand.anchor_weights, static_argnums=(2, 3, 4))(
+        jnp.asarray(nh), jnp.asarray(valid), G, win, 0)
+    got = tcand.anchor_weights(torch.from_numpy(nh), torch.from_numpy(valid), G, win, 0)
+    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+
+
+def test_xla_log_matches_xla_cpu_log():
+    """Random positive float32 values over 40 binades and every power of
+    two near them: bit-equal to jnp.log under jax.jit on the CPU."""
+    rng = np.random.default_rng(3)
+    x = np.exp(rng.uniform(-14, 14, 200_000)).astype(np.float32)
+    x = np.concatenate([x, np.float32(2.0) ** np.arange(-20, 21, dtype=np.float32)])
+    ref = np.asarray(jax.jit(jnp.log)(jnp.asarray(x)))
+    np.testing.assert_array_equal(ref, tcand.xla_log(torch.from_numpy(x)).numpy())
+
+
+def _fma_exact(a, b, c):
+    """float32 a * b + c rounded once to nearest even, from exact rationals."""
+    from fractions import Fraction
+
+    x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(x))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+    key = [(abs(Fraction(float(v)) - x), int(np.array(v).view(np.int32)) & 1) for v in cands]
+    return cands[min(range(3), key=lambda i: key[i])]
+
+
+def test_fma_rounds_once():
+    """``_fma`` against the exactly rounded a * b + c: on random float32
+    triples and on sums whose float64 rounding lands on a float32
+    midpoint, where rounding twice would round to even the wrong way."""
+    rng = np.random.default_rng(11)
+    n = 2000
+    a = (rng.standard_normal(n) * 2.0 ** rng.integers(-20, 20, n)).astype(np.float32)
+    b = (rng.standard_normal(n) * 2.0 ** rng.integers(-20, 20, n)).astype(np.float32)
+    c = (rng.standard_normal(n) * 2.0 ** rng.integers(-60, 20, n)).astype(np.float32)
+    # (1 + 2^-12)^2 = 1 + 2^-11 + 2^-24, a float32 midpoint; +-2^-80 is
+    # below float64's half ulp there and decides the rounding
+    mid = np.float32(1 + 2.0**-12)
+    tiny = np.float32(2.0**-80)
+    a = np.concatenate([a, [mid, mid, -mid, mid]]).astype(np.float32)
+    b = np.concatenate([b, [mid, mid, mid, mid]]).astype(np.float32)
+    c = np.concatenate([c, [tiny, -tiny, -tiny, np.float32(0)]]).astype(np.float32)
+    want = np.array([_fma_exact(x, y, z) for x, y, z in zip(a, b, c)], np.float32)
+    got = tcand._fma(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(want, got)
+    assert got[n] == np.float32(1 + 2.0**-11 + 2.0**-23)   # rounding twice gives 1 + 2^-11
+    assert got[n + 1] == np.float32(1 + 2.0**-11)
+    assert got[n + 2] == -np.float32(1 + 2.0**-11 + 2.0**-23)
 
 
 @pytest.mark.parametrize("CD", [2, 4])

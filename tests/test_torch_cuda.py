@@ -177,6 +177,99 @@ def test_gather_kernels_match_plain(dev):
     assert torch.equal(gather_rows(src2.to(dev), rows.to(dev)).cpu(), gather_rows_plain(src2, rows))
 
 
+def _span_source(dev, N=4099, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-2**31, 2**31 - 1, (N,), dtype=torch.int32, generator=g)
+
+
+@pytest.mark.parametrize("span", [1, 3, 4, 5, 162, 450, 482])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gather_spans_every_phase_and_clip(dev, span, offset):
+    """Starts at each phase 0-3 mod 4 and each output row phase, interior
+    and clipped at both ends (whole spans outside [0, N) too), from a source
+    whose base is 16-byte aligned or one word past it; bit-equal to the
+    plain version, one launch."""
+    from blasr_tpu_torch.ops.gather import gather_spans, gather_spans_plain
+
+    N = 4099
+    src = _span_source(dev, N, span)
+    rng = np.random.default_rng(span)
+    inner = [p + 4 * k for k in (0, 1, 7) for p in range(4)]
+    inner += list(rng.integers(0, N - span + 1, 40))
+    edge = [-1, -2, -3, -4, -span, -span - 1, -span - 9, N - span + 1, N - span + 2,
+            N - 1, N, N + 3, N + span + 5, -2**31, 2**31 - 1 - span]
+    starts = torch.tensor([s for s in inner if 0 <= s <= N - span] + edge, dtype=torch.int32)
+    buf = torch.empty(N + offset, dtype=torch.int32, device=dev)
+    src_d = buf[offset:]
+    src_d.copy_(src.to(dev))
+    before = gather_spans.launches
+    got = gather_spans(src_d, starts.to(dev), span)
+    torch.cuda.synchronize()
+    assert got.shape == (starts.shape[0], span) and got.is_contiguous()
+    assert torch.equal(got.cpu(), gather_spans_plain(src, starts, span))
+    assert gather_spans.launches == before + 1
+
+
+@pytest.mark.parametrize("n_items", [0, 1])
+def test_gather_spans_zero_and_one_item(dev, n_items):
+    from blasr_tpu_torch.ops.gather import gather_spans, gather_spans_plain
+
+    src = _span_source(dev, 1000, 3)
+    starts = torch.tensor([997][:n_items], dtype=torch.int32)
+    before = gather_spans.launches
+    got = gather_spans(src.to(dev), starts.to(dev), 162)
+    torch.cuda.synchronize()
+    assert got.shape == (n_items, 162)
+    assert torch.equal(got.cpu(), gather_spans_plain(src, starts, 162))
+    assert gather_spans.launches == before + n_items
+
+
+@pytest.mark.parametrize("Lr", [1, 3, 4, 5, 128, 416])
+@pytest.mark.parametrize("view", ["whole", "row_offset", "word_offset"])
+def test_gather_rows_widths_views_and_clip(dev, Lr, view):
+    """Rows of 1-416 words from a whole tensor, a row-offset view (base
+    Lr words in: not 16-byte aligned unless Lr % 4 == 0) and a word-offset
+    view (base 4 bytes off), rows clipped at both ends; the int4 instance
+    exactly when the row length and both bases allow it."""
+    from blasr_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+
+    R = 37
+    g = torch.Generator().manual_seed(Lr)
+    big = torch.randint(-2**31, 2**31 - 1, (R + 1, Lr), dtype=torch.int32, generator=g).to(dev)
+    if view == "whole":
+        src = big
+    elif view == "row_offset":
+        src = big[1:]
+    else:
+        buf = torch.empty(R * Lr + 1, dtype=torch.int32, device=dev)
+        src = buf[1:].view(R, Lr)
+        src.copy_(big[1:])
+    assert src.is_contiguous()
+    rows = torch.tensor([-1, -2**31, R, R + 5, 2**31 - 1, 0, R - 1]
+                        + list(np.random.default_rng(Lr).integers(0, R, 50)), dtype=torch.int32)
+    width = 4 if Lr % 4 == 0 and src.data_ptr() % 16 == 0 else 1
+    before = dict(gather_rows.launches_by_path)
+    got = gather_rows(src, rows.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), gather_rows_plain(src.cpu(), rows))
+    assert gather_rows.launches_by_path[width] == before[width] + 1
+    assert gather_rows.launches_by_path[5 - width] == before[5 - width]
+
+
+def test_xla_log_is_the_same_on_the_card(dev):
+    """The port's copy of XLA's CPU log gives the card the CPU's bits, and
+    with it the anchor weights of the JAX mapper."""
+    from blasr_tpu_torch.ops.candidates import anchor_weights, xla_log
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(np.exp(rng.uniform(-14, 14, 100_000)).astype(np.float32))
+    assert torch.equal(xla_log(x.to(dev)).cpu(), xla_log(x))
+    nh = torch.arange(0, 100_001, dtype=torch.int32)
+    valid = torch.ones(nh.shape, dtype=torch.bool)
+    assert torch.equal(anchor_weights(nh.to(dev), valid.to(dev), 4_600_000, 128, 0).cpu(),
+                       anchor_weights(nh, valid, 4_600_000, 128, 0))
+
+
 def test_kernel_wrappers_validate_inputs(dev):
     from blasr_tpu_torch.ops.gather import gather_rows, gather_spans
 
@@ -186,6 +279,24 @@ def test_kernel_wrappers_validate_inputs(dev):
     with pytest.raises(ValueError):
         gather_rows(torch.zeros((8, 8), dtype=torch.int32, device=dev)[:, ::2],
                     torch.zeros(4, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        gather_spans(torch.zeros(64, dtype=torch.int32, device=dev),
+                     torch.zeros((2, 2), dtype=torch.int32, device=dev), 8)
+    with pytest.raises(ValueError):
+        gather_spans(torch.zeros(64, dtype=torch.int32, device=dev),
+                     torch.zeros(4, dtype=torch.int32), 8)
+    with pytest.raises(ValueError):
+        gather_spans(torch.zeros(0, dtype=torch.int32, device=dev),
+                     torch.zeros(4, dtype=torch.int32, device=dev), 8)
+    with pytest.raises(ValueError):
+        gather_spans(torch.zeros(64, dtype=torch.int32, device=dev),
+                     torch.zeros(4, dtype=torch.int32, device=dev), 0)
+    with pytest.raises(ValueError):
+        gather_rows(torch.zeros((0, 8), dtype=torch.int32, device=dev),
+                    torch.zeros(4, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        gather_rows(torch.zeros((8, 8), dtype=torch.int32, device=dev),
+                    torch.zeros(4, dtype=torch.int64, device=dev))
 
 
 @pytest.mark.parametrize("qual", [None, "single", "dual"])

@@ -63,3 +63,41 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     gather_spans(src, torch.tensor([0, 5], dtype=torch.int32), 4)
     gather_rows(src.reshape(16, 16), torch.tensor([1], dtype=torch.int32))
     assert launch_counts() == {"banded_dp": 0, "gather_spans": 0, "gather_rows": 0}
+
+
+@pytest.mark.parametrize(
+    "src_ptr,out_ptr,row_words,width",
+    [
+        (0x7F0000000000, 0x7F0000100000, 416, 4),  # both 16-byte aligned
+        (0x7F0000000000, 0x7F0000100000, 256, 4),  # rows of a multiple of 4 words
+        (0x7F0000000000, 0x7F0000100000, 162, 1),  # rows of 162 words: not every row aligned
+        (0x7F0000000004, 0x7F0000100000, 256, 1),  # source 4 bytes off (a word-offset view)
+        (0x7F0000000000, 0x7F0000100008, 128, 1),  # output 8 bytes off
+        (0x7F0000000010, 0x7F0000100020, 4, 4),
+        (0x7F000000000C, 0x7F0000100000, 5, 1),
+    ],
+)
+def test_vector_width(src_ptr, out_ptr, row_words, width):
+    from blasr_tpu_torch.ops.gather import vector_width
+
+    assert vector_width(src_ptr, out_ptr, row_words) == width
+
+
+def test_vector_width_of_views():
+    """A row-offset view of an (R, 5) source starts 20 bytes in; a word
+    offset view of an (R, 4) one 4 bytes in: both take the scalar
+    instance. The plain versions gather from either view as from a copy."""
+    from blasr_tpu_torch.ops.gather import vector_width
+
+    big = torch.arange(11 * 5, dtype=torch.int32).reshape(11, 5)
+    view = big[1:]
+    assert view.is_contiguous() and view.data_ptr() - big.data_ptr() == 20
+    base = big.data_ptr()
+    assert vector_width(base, base, 4) == (4 if base % 16 == 0 else 1)
+    assert vector_width(base + 20, base, 5) == 1
+    assert vector_width(base + 4, base, 4) == 1
+    rows = torch.tensor([-2, 0, 3, 9, 40], dtype=torch.int32)
+    assert torch.equal(gather_rows(view, rows), gather_rows(view.clone(), rows))
+    flat = torch.arange(1, 1 + 10 * 4 + 1, dtype=torch.int32)[1:]
+    starts = torch.tensor([-5, 0, 1, 2, 3, 37, 60], dtype=torch.int32)
+    assert torch.equal(gather_spans(flat, starts, 5), gather_spans(flat.clone(), starts, 5))
