@@ -25,40 +25,44 @@
 //   per item the best (score, a, w): lowest score, then earliest step,
 //   then smallest w.
 //
-// Bound on the H100: the S = L + T - 1 steps of an item are serial, so the
-// kernel is latency bound on that loop (a few dozen integer operations,
-// one or two neighbour exchanges and one 2W-byte arrow row store per step).
-// The arrow stores, 2 bytes per cell, are its only DRAM traffic; the
-// query and target bytes are re-read from L1 as the band slides.
+// Bound on the H100: the S = L + T - 1 steps of an item are serial and
+// the main path gives few items (I = 512 windows, about 4 per SM). At
+// W = 32 an item is one warp, so each scheduler holds about one warp and
+// the kernel is bound by one step's dependency chain and the in-order
+// issue of its instructions, not by the card's integer rate: a design
+// with its loads on the chain took about 430 cycles a step against the
+// 153 that the operation count allows, this one 290-370
+// (tools/dp_kernel_times.py, NVIDIA H100 80GB HBM3 at 700 W). At W >= 128
+// a step holds W cells for the same chain and the kernel nears the issue
+// rate of its integer instructions.
+// The arrow stores, 2 bytes per cell, are its only DRAM traffic.
 //
-// Design: one thread block per item and one thread per band cell (W is a
-// template parameter in {32, 64, 128, 256}); all recurrence state lives in
-// registers. The quality mode is a second template parameter, so the
-// quality-free instance keeps its code and registers; a quality mode adds
-// one global load of the cell's phred byte(s) beside the query code and a
-// few integer operations per cell. The +-1 band shifts read a neighbour lane's value of the
-// previous step(s): with W = 32 the band is one warp and the exchange is a
-// __shfl_sync; with W > 32 each step's values go to a 3-slot shared-memory
-// ring (step a writes slot a % 3 and reads the other two), so one barrier
-// per step separates every read from the next overwrite. The TPU kernel's
-// lane packing (_widen, _interleave, reversed targets) is layout for the
-// TPU's 128-lane vregs and has no counterpart here; so is the chunked
-// guided mode's packing of 128/W items per lane row and its fetch span,
-// so the two guided TPU modes are one mode here. Guided and matrix live in
-// a third template parameter, Special, that is on when either is: the
-// instances without it are the shared-schedule, default-score kernel with
-// nothing added (with the two switches as runtime branches of every
-// instance, tools/dp_kernel_times.py measured 9-29% more time per launch
-// on an NVIDIA H100 80GB HBM3 at 700 W). Inside
-// a Special instance the two are runtime branches, uniform over the grid,
-// so the build has 24 instances, not 48: a guided block stages its item's
-// NK knots (about 110 at L = 3328) in dynamic shared memory and every
-// thread evaluates the same lerp per step, in place of the qoff load; a
-// matrix block stages the 25 values in shared memory and reads one per
-// cell in place of the match/mismatch/N select. Each lane tracks its
-// own best with a strict '<' (so it keeps its earliest step); one block
-// reduction of a packed (score, a, w) key at the end gives the oracle's
-// tie order.
+// Design: one block per item and one thread per band cell. W = 32 is one
+// warp, and the +-1 band shifts are shuffles; at W > 32 each step's H, E,
+// F and R | M go to a 3-slot shared ring (step a writes slot a % 3 and
+// reads the other two), one barrier per step. (One warp per item with
+// W / 32 cells a lane, which drops the ring and the barrier, measured
+// 0.8-1.6x this at W >= 64: four warps an SM hide less latency than 8-32.)
+// Warps issue in order, so every load's consumer sits a step after it:
+// the schedule runs three steps ahead (the shared qoff, or the guided knot
+// line advanced by one add per step, whose per-segment slope is read from
+// shared memory a step before its add), the query, target and phred loads
+// two steps ahead, and the step's costs (substitution, insertion, the
+// diagonal increment, the valid range as one unsigned compare) one step
+// ahead; the loop runs two steps per pass so that the pipeline's registers
+// rotate by renaming. Quality costs come from two 256-entry tables per
+// block (one entry per phred byte, filled in the prologue), looked up at
+// the top of the step before, so no division is left in the loop. The
+// diagonal run R (6 bits) and mismatch count M (5 bits) travel packed as
+// R | M << 6, the arrow word's own layout, so one exchange and one add
+// carry both, and the five-way minimum is a tree of depth three. Schedules
+// with steps outside {0, 1} stay exact: every exchange takes any offset.
+// The quality mode, the guided schedule and the score matrix are template
+// parameters (48 instances): one flag for both with runtime branches
+// inside cost 20-40% a launch at W = 32. Each thread
+// tracks its cell's best with a strict '<' (so it keeps its earliest
+// step); one block reduction of a packed (score, a, w) key at the end
+// gives the oracle's tie order.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -72,18 +76,15 @@ constexpr int kMaxSteps = 1 << 22;  // a must fit the 23 bits of the best key
 constexpr int kQualNone = 0, kQualSingle = 1, kQualDual = 2;
 constexpr int kQvNeutral = 15;
 constexpr int kKnotLog2 = 6, kKnotSpacing = 1 << kKnotLog2;
-constexpr int kMaxKnots = 8192;  // 32 KB of knots: with the ring, under 48 KB
+constexpr int kMaxKnots = 8192;  // 32 KB of slopes: with the ring and tables, under 48 KB
+constexpr int kRunMask = 63, kMisShift = 6;  // R | M << 6, as in the arrow word
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Scores {
   int match, mismatch, n_score, ins, del, open, extend;
   int use_matrix;
   int mat[25];  // row-major query x target code (A C G T N)
 };
-
-__device__ __forceinline__ int lane_value(int x, int lane, int fill) {
-  const int v = __shfl_sync(0xffffffffu, x, lane & 31);
-  return (lane >= 0 && lane < 32) ? v : fill;
-}
 
 // max(1, floor((base * clip(q, 4, 30) + 7) / 15)), floor also for a
 // negative base
@@ -93,176 +94,293 @@ __device__ __forceinline__ int qv_cost(int base, int q) {
   return max(d, 1);
 }
 
-template <int W>
-__device__ __forceinline__ int row_value(const int* row, int w, int fill) {
-  return (w >= 0 && w < W) ? row[w] : fill;
-}
+// The kernel's parameters
+struct Params {
+  const uint8_t* query;
+  const int32_t* qlen;
+  const uint8_t* target;
+  const int32_t *tlo, *thi, *qoff, *knots;
+  const void* qual;
+  int32_t* best;
+  uint16_t* arrows;
+  int nk, n_items, L, T, S;
+};
 
-template <int W, int QMode, bool Special>
-__global__ void __launch_bounds__(W)
-banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ qlen,
-                 const uint8_t* __restrict__ target, const int32_t* __restrict__ tlo,
-                 const int32_t* __restrict__ thi, const int32_t* __restrict__ qoff,
-                 const int32_t* __restrict__ knots, int nk,
-                 const void* __restrict__ qual, int32_t* __restrict__ best,
-                 uint16_t* __restrict__ arrows,
-                 int n_items, int L, int T, int S, Scores sc) {
-  constexpr int kSlots = W > 32 ? 3 : 1;
-  __shared__ int sH[kSlots][W], sE[kSlots][W], sF[kSlots][W], sR[kSlots][W],
-      sM[kSlots][W];
-  __shared__ int sMat[25];
-  extern __shared__ int sKnots[];  // nk ints when guided (knots != nullptr)
-  const int i = blockIdx.x;
-  const int w = threadIdx.x;
-  const uint8_t* qrow = query + static_cast<size_t>(i) * L;
-  const uint8_t* trow = target + static_cast<size_t>(i) * T;
-  const int ql = qlen[i], tl = tlo[i], th = thi[i];
-  const bool guided = knots != nullptr;
-
-  int cur = 0, p1 = 2, p2 = 1;  // ring slots of steps a, a-1, a-2
-  if constexpr (W > 32) {
-    for (int s = 1; s < 3; ++s) {
-      sH[s][w] = kInf;
-      sE[s][w] = kInf;
-      sF[s][w] = kInf;
-      sR[s][w] = 0;
-      sM[s][w] = 0;
+// One item's band schedule, called for a = 0, 1, 2, ... in turn: the
+// shared qoff, one load; guided, the knot line acc = 64 k_j + r (k_j+1 -
+// k_j) at a = 64 j + r, advanced by one add of its segment's slope per
+// step (at a segment's end acc is 64 k_j+1 by itself), qoff = acc >> 6.
+template <bool Guided>
+struct Schedule {
+  const int32_t* qoff;
+  const int* slope;  // guided: k_min(j+1, nk-1) - k_j per segment j, in shared memory
+  int nk, S, acc, next;  // guided: acc at step a, the slope of step a
+  __device__ __forceinline__ int operator()(int a) {
+    if constexpr (Guided) {
+      // the slope of step a + 1 is loaded a call ahead of its add
+      const int qo = acc >> kKnotLog2;
+      acc += next;
+      next = slope[min((a + 1) >> kKnotLog2, nk - 1)];
+      return qo;
+    } else {
+      return __ldg(qoff + min(a, S - 1));
     }
   }
-  if constexpr (Special) {
-    if (guided) {
-      const int32_t* krow = knots + static_cast<size_t>(i) * nk;
-      for (int j = w; j < nk; j += W) sKnots[j] = krow[j];
+};
+
+// One cell's raw inputs of one step (query and target codes, phred),
+// loaded two steps ahead
+struct Raw {
+  int qc, tc, qv;
+};
+
+template <int QMode, bool Guided>
+__device__ __forceinline__ Raw load_cell(const uint8_t* qrow, const uint8_t* trow,
+                                         const uint8_t* qv8, const uint16_t* qv16, int L,
+                                         int T, int a, int q) {
+  Raw r;
+  const int t = a - q;
+  // a guided schedule comes from the caller's knots: keep its reads in the
+  // row even if a knot lies outside [0, L - W]
+  const bool q_in = Guided ? static_cast<unsigned>(q) < static_cast<unsigned>(L) : q < L;
+  r.qc = q_in ? static_cast<int>(__ldg(qrow + q)) : 4;
+  r.tc = static_cast<unsigned>(t) < static_cast<unsigned>(T) ? static_cast<int>(__ldg(trow + t))
+                                                              : 5;
+  r.qv = 0;
+  if constexpr (QMode == kQualSingle) {
+    r.qv = q_in ? static_cast<int>(__ldg(qv8 + q)) : kQvNeutral;
+  } else if constexpr (QMode == kQualDual) {
+    r.qv = q_in ? static_cast<int>(__ldg(qv16 + q)) : (kQvNeutral | (kQvNeutral << 8));
+  }
+  return r;
+}
+
+// the cell's costs one step ahead: substitution, insertion, the R | M << 6
+// increment of a diagonal move, and whether the cell is in the valid range
+struct Cost {
+  int sub, ins, inc;
+  bool valid;
+};
+
+// the quality costs of a cell from the per-block tables: its mismatch and
+// insertion costs (the scores themselves without quality values)
+struct QCost {
+  int x, ins;
+};
+
+template <int QMode, bool Matrix>
+__device__ __forceinline__ QCost lookup(const Raw& r, const Scores& sc, const int* sXc,
+                                        const int* sIc) {
+  QCost q{sc.mismatch, sc.ins};
+  if constexpr (QMode == kQualSingle) {
+    if constexpr (!Matrix) q.x = sXc[r.qv];
+    q.ins = sIc[r.qv];
+  } else if constexpr (QMode == kQualDual) {
+    if constexpr (!Matrix) q.x = sXc[r.qv & 255];
+    q.ins = sIc[r.qv >> 8];
+  }
+  return q;
+}
+
+template <bool Matrix>
+__device__ __forceinline__ Cost derive(const Raw& r, const QCost& q, const Scores& sc,
+                                       const int* sMat, bool valid) {
+  Cost c;
+  const bool eq = r.qc == r.tc && r.qc < 4;
+  c.ins = q.ins;
+  if constexpr (Matrix) {
+    c.sub = r.qc <= 4 ? sMat[r.qc * 5 + min(r.tc, 4)] : 0;
+  } else {
+    c.sub = eq ? sc.match : ((r.qc >= 4 || r.tc >= 4) ? sc.n_score : q.x);
+  }
+  c.inc = eq ? 1 : (1 | (1 << kMisShift));
+  c.valid = valid;
+  return c;
+}
+
+// One cell's recurrence from its neighbours' values of the steps before;
+// returns H and sets E, F, R | M << 6 and the arrow word
+__device__ __forceinline__ int cell(const Scores& sc, int H1u, int H1l, int E1l, int F1u,
+                                    int H2d, int rm2, const Cost& c, int& E, int& F, int& RM,
+                                    int& word) {
+  const int e_open = H1l + sc.open;
+  E = min(E1l, e_open) + sc.extend;
+  const int ebit = E1l <= e_open;
+  const int f_open = H1u + sc.open;
+  F = min(F1u, f_open) + sc.extend;
+  const int fbit = F1u <= f_open;
+  // the first minimum in the order diag, up, left, E, F, as a tree
+  int hA = min(H2d, 0) + c.sub, sA = H2d > 0 ? kSrcDiagStart : kSrcDiag;
+  const int hu = H1u + c.ins;
+  if (hu < hA) { hA = hu; sA = kSrcUp; }
+  int hB = H1l + sc.del, sB = kSrcLeft;
+  if (E < hB) { hB = E; sB = kSrcE; }
+  if (F < hB) { hB = F; sB = kSrcF; }
+  int h = hA, src = sA;
+  if (hB < h) { h = hB; src = sB; }
+  if (h >= 0) { h = 0; src = kSrcStop; }
+  if (!c.valid) {
+    h = E = F = kInf;
+    src = kSrcStop;
+  }
+  const bool restart = (rm2 & kRunMask) == kRunMask || rm2 >= (31 << kMisShift);
+  RM = src == kSrcDiag ? (restart ? c.inc : rm2 + c.inc) : 0;
+  const int emit = src == kSrcDiagStart ? c.inc - 1 : RM;
+  word = src | (ebit << 3) | (fbit << 4) | (emit << 5);
+  return h;
+}
+
+// the value of lane (or band index) w of a step's row, fill off the band
+__device__ __forceinline__ int lane_value(int x, int w, int fill) {
+  const int v = __shfl_sync(kFull, x, w & 31);
+  return static_cast<unsigned>(w) < 32u ? v : fill;
+}
+
+template <int W>
+__device__ __forceinline__ int row_value(const int* row, int w, int fill) {
+  return static_cast<unsigned>(w) < static_cast<unsigned>(W) ? row[w] : fill;
+}
+
+// One block per item, one thread per band cell. W = 32: one warp, and the
+// +-1 band shifts are shuffles. W > 32: each step's H, E, F and R | M go to
+// a 3-slot shared ring (step a writes slot a % 3 and reads the other two),
+// one barrier per step.
+template <int W, int QMode, bool Guided, bool Matrix>
+__global__ void __launch_bounds__(W) banded_dp_kernel(Params p, Scores sc) {
+  constexpr int kSlots = W > 32 ? 3 : 1;
+  constexpr bool kQual = QMode != kQualNone;
+  __shared__ int sH[kSlots][W], sE[kSlots][W], sF[kSlots][W], sRM[kSlots][W];
+  __shared__ int sXc[kQual ? 256 : 1], sIc[kQual ? 256 : 1];  // cost per phred byte
+  __shared__ int sMat[25];
+  __shared__ long long red[W / 32];
+  extern __shared__ int sSlope[];  // nk ints when guided
+  const int i = blockIdx.x;
+  const int w = threadIdx.x;
+  const int L = p.L, T = p.T, S = p.S;
+  const uint8_t* qrow = p.query + static_cast<size_t>(i) * L;
+  const uint8_t* trow = p.target + static_cast<size_t>(i) * T;
+  const uint8_t* qv8 = static_cast<const uint8_t*>(p.qual) + static_cast<size_t>(i) * L;
+  const uint16_t* qv16 = static_cast<const uint16_t*>(p.qual) + static_cast<size_t>(i) * L;
+  // the valid range of step a is the band indexes [vlo, vlo + span) with
+  // vlo = a - qo - thi + 1 and vlo + span = min(qlen - qo, a - qo -
+  // max(tlo, 0) + 1); the bounds are clamped to +-2^28 where that changes
+  // no cell of a band within +-2^27
+  constexpr int kClamp = 1 << 28;
+  const int ql = min(max(p.qlen[i], -kClamp), kClamp);
+  const int tl0 = min(max(p.tlo[i], 0), kClamp);
+  const int th = min(max(p.thi[i], 0), kClamp);
+  auto valid_at = [&](int a, int qo) {
+    const int vlo = a - qo - th + 1;
+    const int span = max(min(ql - qo, a - qo - tl0 + 1) - vlo, 0);
+    return static_cast<unsigned>(w - vlo) < static_cast<unsigned>(span);
+  };
+
+  if constexpr (kQual) {
+    for (int v = w; v < 256; v += W) {
+      sXc[v] = qv_cost(sc.mismatch, v);
+      sIc[v] = qv_cost(sc.ins, v);
     }
-    if (sc.use_matrix && w == 0) {
+  }
+  if constexpr (Guided) {
+    const int32_t* krow = p.knots + static_cast<size_t>(i) * p.nk;
+    for (int j = w; j < p.nk; j += W) sSlope[j] = krow[min(j + 1, p.nk - 1)] - krow[j];
+  }
+  if constexpr (Matrix) {
+    if (w == 0) {
 #pragma unroll
       for (int j = 0; j < 25; ++j) sMat[j] = sc.mat[j];
     }
   }
-  if constexpr (W > 32 || Special) __syncthreads();
+  if constexpr (W > 32) {
+    for (int s = 1; s < 3; ++s) {
+      sH[s][w] = sE[s][w] = sF[s][w] = kInf;
+      sRM[s][w] = 0;
+    }
+  }
+  __syncthreads();
 
-  int H1 = kInf, H2 = kInf, E1 = kInf, F1 = kInf, R1 = 0, R2 = 0, M1 = 0, M2 = 0;
-  int best_v = 0, best_a = 0;
-  int qo_prev = 0, s1_prev = 0;
+  // the pipeline: the costs of step a, the raw loads of step a + 1, the
+  // schedule up to step a + 2
+  Schedule<Guided> sched{p.qoff, sSlope, p.nk, S,
+                         Guided ? p.knots[static_cast<size_t>(i) * p.nk] * kKnotSpacing : 0,
+                         Guided ? sSlope[0] : 0};
+  int qo0 = sched(0), qo1 = sched(1), qo2 = sched(2);
+  const Raw raw0 = load_cell<QMode, Guided>(qrow, trow, qv8, qv16, L, T, 0, qo0 + w);
+  Cost cost = derive<Matrix>(raw0, lookup<QMode, Matrix>(raw0, sc, sXc, sIc), sc, sMat,
+                                    valid_at(0, qo0));
+  Raw raw1 = load_cell<QMode, Guided>(qrow, trow, qv8, qv16, L, T, 1, qo1 + w);
+
+  int H1 = kInf, H2 = kInf, E1 = kInf, F1 = kInf, RM1 = 0, RM2 = 0;
+  int best_v = 0, best_a = 0, s1 = 0, s2 = 0;
+  int cur = 0, p1 = 2, p2 = 1;  // ring slots of steps a, a-1, a-2 (W > 32)
+  uint16_t* arow = p.arrows != nullptr ? p.arrows + static_cast<size_t>(i) * W + w : nullptr;
+  const size_t arow_step = static_cast<size_t>(p.n_items) * W;
+
+  // two steps per pass, so the pipeline's registers rotate by renaming
+#pragma unroll 2
   for (int a = 0; a < S; ++a) {
-    int qo;
-    if (Special && guided) {
-      const int j = a >> kKnotLog2, r = a & (kKnotSpacing - 1);
-      qo = (sKnots[j] * (kKnotSpacing - r) + sKnots[min(j + 1, nk - 1)] * r) >> kKnotLog2;
-    } else {
-      qo = __ldg(qoff + a);
-    }
-    const int s1 = a > 0 ? qo - qo_prev : 0;
-    const int s2 = s1_prev;
-    qo_prev = qo;
-    s1_prev = s1;
+    // ahead of the chain: the schedule of step a + 3, the loads of a + 2
+    const int qo3 = sched(a + 3);
+    const Raw raw2 = load_cell<QMode, Guided>(qrow, trow, qv8, qv16, L, T, a + 2, qo2 + w);
+    const QCost qc1 = lookup<QMode, Matrix>(raw1, sc, sXc, sIc);
+
+    // the neighbours' values of the steps before
     const int dd = s1 + s2 - 1;
-    const int q = qo + w;
-    const int t = a - q;
-    // a guided schedule comes from the caller's knots: keep its reads in
-    // the row even if a knot lies outside [0, L - W]
-    const bool q_in = (!Special || q >= 0) && q < L;
-    const int qc = q_in ? static_cast<int>(__ldg(qrow + q)) : 4;
-    const int tc = (t >= 0 && t < T) ? static_cast<int>(__ldg(trow + t)) : 5;
-    const bool valid = q < ql && t >= tl && t < th && t >= 0;
-    int x_cell = sc.mismatch, ins_cell = sc.ins;
-    if constexpr (QMode == kQualSingle) {
-      const uint8_t* qv = static_cast<const uint8_t*>(qual) + static_cast<size_t>(i) * L;
-      const int v = q_in ? static_cast<int>(__ldg(qv + q)) : kQvNeutral;
-      x_cell = qv_cost(sc.mismatch, v);
-      ins_cell = qv_cost(sc.ins, v);
-    } else if constexpr (QMode == kQualDual) {
-      const uint16_t* qv = static_cast<const uint16_t*>(qual) + static_cast<size_t>(i) * L;
-      const int v = q_in ? static_cast<int>(__ldg(qv + q))
-                         : (kQvNeutral | (kQvNeutral << 8));
-      x_cell = qv_cost(sc.mismatch, v & 255);
-      ins_cell = qv_cost(sc.ins, v >> 8);
-    }
-
-    int H1_up, H1_left, E1_left, F1_up, H2_diag, R2_diag, M2_diag;
+    int H1u, H1l, E1l, F1u, H2d, RM2d;
     if constexpr (W == 32) {
-      H1_up = lane_value(H1, w + s1 - 1, kInf);
-      H1_left = lane_value(H1, w + s1, kInf);
-      E1_left = lane_value(E1, w + s1, kInf);
-      F1_up = lane_value(F1, w + s1 - 1, kInf);
-      H2_diag = lane_value(H2, w + dd, kInf);
-      R2_diag = lane_value(R2, w + dd, 0);
-      M2_diag = lane_value(M2, w + dd, 0);
+      H2d = lane_value(H2, w + dd, kInf);
+      RM2d = lane_value(RM2, w + dd, 0);
+      H1u = lane_value(H1, w + s1 - 1, kInf);
+      H1l = lane_value(H1, w + s1, kInf);
+      E1l = lane_value(E1, w + s1, kInf);
+      F1u = lane_value(F1, w + s1 - 1, kInf);
     } else {
-      H1_up = row_value<W>(sH[p1], w + s1 - 1, kInf);
-      H1_left = row_value<W>(sH[p1], w + s1, kInf);
-      E1_left = row_value<W>(sE[p1], w + s1, kInf);
-      F1_up = row_value<W>(sF[p1], w + s1 - 1, kInf);
-      H2_diag = row_value<W>(sH[p2], w + dd, kInf);
-      R2_diag = row_value<W>(sR[p2], w + dd, 0);
-      M2_diag = row_value<W>(sM[p2], w + dd, 0);
+      H2d = row_value<W>(sH[p2], w + dd, kInf);
+      RM2d = row_value<W>(sRM[p2], w + dd, 0);
+      H1u = row_value<W>(sH[p1], w + s1 - 1, kInf);
+      H1l = row_value<W>(sH[p1], w + s1, kInf);
+      E1l = row_value<W>(sE[p1], w + s1, kInf);
+      F1u = row_value<W>(sF[p1], w + s1 - 1, kInf);
     }
-
-    const bool eq = qc == tc && qc < 4;
-    int sub;
-    if (Special && sc.use_matrix) {
-      sub = qc <= 4 ? sMat[qc * 5 + min(tc, 4)] : 0;
-    } else {
-      const bool anyn = qc >= 4 || tc >= 4;
-      sub = eq ? sc.match : (anyn ? sc.n_score : x_cell);
+    int E, F, RM, word;
+    const int H = cell(sc, H1u, H1l, E1l, F1u, H2d, RM2d, cost, E, F, RM, word);
+    if constexpr (W > 32) {
+      sH[cur][w] = H;
+      sE[cur][w] = E;
+      sF[cur][w] = F;
+      sRM[cur][w] = RM;
     }
-
-    const int e_open = H1_left + sc.open;
-    int E_new = min(E1_left, e_open) + sc.extend;
-    const int ebit = E1_left <= e_open;
-    const int f_open = H1_up + sc.open;
-    int F_new = min(F1_up, f_open) + sc.extend;
-    const int fbit = F1_up <= f_open;
-
-    int h = min(H2_diag, 0) + sub;
-    int src = H2_diag > 0 ? kSrcDiagStart : kSrcDiag;
-    int v = H1_up + ins_cell;
-    if (v < h) { h = v; src = kSrcUp; }
-    v = H1_left + sc.del;
-    if (v < h) { h = v; src = kSrcLeft; }
-    if (E_new < h) { h = E_new; src = kSrcE; }
-    if (F_new < h) { h = F_new; src = kSrcF; }
-    if (h >= 0) { h = 0; src = kSrcStop; }
-
-    const int H_new = valid ? h : kInf;
-    E_new = valid ? E_new : kInf;
-    F_new = valid ? F_new : kInf;
-    src = valid ? src : kSrcStop;
-    const bool is_diag = src == kSrcDiag;
-    const int mm = eq ? 0 : 1;
-    const bool restart = R2_diag >= 63 || M2_diag >= 31;
-    const int R_new = is_diag ? (restart ? 1 : R2_diag + 1) : 0;
-    const int M_new = is_diag ? (restart ? mm : M2_diag + mm) : 0;
-    const int M_emit = src == kSrcDiagStart ? mm : M_new;
-
-    if (H_new < best_v) {
-      best_v = H_new;
+    if (H < best_v) {
+      best_v = H;
       best_a = a;
     }
-    if (arrows != nullptr) {
-      arrows[(static_cast<size_t>(a) * n_items + i) * W + w] = static_cast<uint16_t>(
-          src | (ebit << 3) | (fbit << 4) | (R_new << 5) | (M_emit << 11));
+    if (arow != nullptr) {
+      *arow = static_cast<uint16_t>(word);
+      arow += arow_step;
     }
+
+    // the next step's costs, from the loads of the step before
+    cost = derive<Matrix>(raw1, qc1, sc, sMat, valid_at(a + 1, qo1));
+    raw1 = raw2;
+    s2 = s1;
+    s1 = qo1 - qo0;
+    qo0 = qo1;
+    qo1 = qo2;
+    qo2 = qo3;
     if constexpr (W > 32) {
-      sH[cur][w] = H_new;
-      sE[cur][w] = E_new;
-      sF[cur][w] = F_new;
-      sR[cur][w] = R_new;
-      sM[cur][w] = M_new;
       __syncthreads();
       const int old2 = p2;
       p2 = p1;
       p1 = cur;
       cur = old2;
+    } else {
+      H2 = H1;
+      H1 = H;
+      E1 = E;
+      F1 = F;
+      RM2 = RM1;
+      RM1 = RM;
     }
-    H2 = H1;
-    H1 = H_new;
-    E1 = E_new;
-    F1 = F_new;
-    R2 = R1;
-    R1 = R_new;
-    M2 = M1;
-    M1 = M_new;
   }
 
   // lexicographic (score, a, w) minimum over the band; the low word is
@@ -271,11 +389,10 @@ banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ 
                   static_cast<long long>((static_cast<unsigned>(best_a) << 9) |
                                          static_cast<unsigned>(w));
   for (int off = 16; off > 0; off >>= 1) {
-    const long long o = __shfl_down_sync(0xffffffffu, key, off);
+    const long long o = __shfl_down_sync(kFull, key, off);
     key = o < key ? o : key;
   }
   if constexpr (W > 32) {
-    __shared__ long long red[W / 32];
     if ((w & 31) == 0) red[w >> 5] = key;
     __syncthreads();
     if (w == 0) {
@@ -284,45 +401,35 @@ banded_dp_kernel(const uint8_t* __restrict__ query, const int32_t* __restrict__ 
   }
   if (w == 0) {
     const long long low = key & 0xffffffffLL;
-    best[i] = static_cast<int32_t>((key - low) / 4294967296LL);
-    best[n_items + i] = static_cast<int32_t>(low >> 9);
-    best[2 * n_items + i] = static_cast<int32_t>(low & 511);
+    p.best[i] = static_cast<int32_t>((key - low) / 4294967296LL);
+    p.best[p.n_items + i] = static_cast<int32_t>(low >> 9);
+    p.best[2 * p.n_items + i] = static_cast<int32_t>(low & 511);
   }
 }
 
-// the launch's pointers and sizes, as the C entry point received them
-struct Args {
-  const void *query, *qlen, *target, *tlo, *thi, *qoff, *knots, *qual;
-  void *best, *arrows;
-  int nk, n_items, L, T, S;
-};
-
-template <int W, int QMode, bool Special>
-void launch_special(const Args& g, const Scores& sc, cudaStream_t stream) {
-  const size_t smem = g.knots != nullptr ? sizeof(int) * static_cast<size_t>(g.nk) : 0;
-  banded_dp_kernel<W, QMode, Special><<<g.n_items, W, smem, stream>>>(
-      static_cast<const uint8_t*>(g.query), static_cast<const int32_t*>(g.qlen),
-      static_cast<const uint8_t*>(g.target), static_cast<const int32_t*>(g.tlo),
-      static_cast<const int32_t*>(g.thi), static_cast<const int32_t*>(g.qoff),
-      static_cast<const int32_t*>(g.knots), g.nk, g.qual,
-      static_cast<int32_t*>(g.best), static_cast<uint16_t*>(g.arrows), g.n_items, g.L,
-      g.T, g.S, sc);
+template <int W, int QMode, bool Guided>
+void launch_scores(const Params& p, const Scores& sc, cudaStream_t stream) {
+  const size_t smem = Guided ? sizeof(int) * static_cast<size_t>(p.nk) : 0;
+  if (sc.use_matrix)
+    banded_dp_kernel<W, QMode, Guided, true><<<p.n_items, W, smem, stream>>>(p, sc);
+  else
+    banded_dp_kernel<W, QMode, Guided, false><<<p.n_items, W, smem, stream>>>(p, sc);
 }
 
 template <int W, int QMode>
-void launch_mode(const Args& g, const Scores& sc, cudaStream_t stream) {
-  if (g.knots != nullptr || sc.use_matrix)
-    launch_special<W, QMode, true>(g, sc, stream);
+void launch_mode(const Params& p, const Scores& sc, cudaStream_t stream) {
+  if (p.knots != nullptr)
+    launch_scores<W, QMode, true>(p, sc, stream);
   else
-    launch_special<W, QMode, false>(g, sc, stream);
+    launch_scores<W, QMode, false>(p, sc, stream);
 }
 
 template <int W>
-bool launch(const Args& g, int qmode, const Scores& sc, cudaStream_t stream) {
+bool launch(const Params& p, int qmode, const Scores& sc, cudaStream_t stream) {
   switch (qmode) {
-    case kQualNone: launch_mode<W, kQualNone>(g, sc, stream); return true;
-    case kQualSingle: launch_mode<W, kQualSingle>(g, sc, stream); return true;
-    case kQualDual: launch_mode<W, kQualDual>(g, sc, stream); return true;
+    case kQualNone: launch_mode<W, kQualNone>(p, sc, stream); return true;
+    case kQualSingle: launch_mode<W, kQualSingle>(p, sc, stream); return true;
+    case kQualDual: launch_mode<W, kQualDual>(p, sc, stream); return true;
     default: return false;
   }
 }
@@ -353,15 +460,18 @@ extern "C" int banded_dp_launch(const void* query, const void* qlen, const void*
   Scores sc{match, mismatch, n_score, ins, del, open, extend, matrix != nullptr, {}};
   if (matrix != nullptr)
     for (int j = 0; j < 25; ++j) sc.mat[j] = matrix[j];
-  const Args g{query, qlen, target, tlo, thi, qoff, knots, qual, best, arrows,
-               knots != nullptr ? nk : 0, n_items, L, T, S};
+  const Params p{static_cast<const uint8_t*>(query), static_cast<const int32_t*>(qlen),
+                 static_cast<const uint8_t*>(target), static_cast<const int32_t*>(tlo),
+                 static_cast<const int32_t*>(thi), static_cast<const int32_t*>(qoff),
+                 static_cast<const int32_t*>(knots), qual, static_cast<int32_t*>(best),
+                 static_cast<uint16_t*>(arrows), knots != nullptr ? nk : 0, n_items, L, T, S};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bool ok = false;
   switch (W) {
-    case 32: ok = launch<32>(g, qmode, sc, st); break;
-    case 64: ok = launch<64>(g, qmode, sc, st); break;
-    case 128: ok = launch<128>(g, qmode, sc, st); break;
-    case 256: ok = launch<256>(g, qmode, sc, st); break;
+    case 32: ok = launch<32>(p, qmode, sc, st); break;
+    case 64: ok = launch<64>(p, qmode, sc, st); break;
+    case 128: ok = launch<128>(p, qmode, sc, st); break;
+    case 256: ok = launch<256>(p, qmode, sc, st); break;
     default: break;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);

@@ -17,6 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from blasr_tpu_torch.ops.xla_math import xla_log
+
 BIG = 2**30
 SUM_CHUNK = 32
 
@@ -29,17 +31,21 @@ def _sequential_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def ordered_sum(x: torch.Tensor) -> torch.Tensor:
-    """Float sum over the last axis in a fixed order: chunks of 32 summed
-    left to right, then the chunk sums the same way, recursively. This is
-    the order XLA's CPU backend uses for lengths that are multiples of 32
-    or at most 32 (checked against ``jnp.sum``), which is what makes the
-    float-derived integers of the mapper agree with the JAX package; a
-    device reduction (``torch.sum``) would choose its own order."""
+    """Float sum over the last axis in XLA's CPU order for ``jnp.sum``: a
+    window reduction of size 32 whose zero padding is split over both
+    ends, ``(m - n) // 2`` in front and the rest behind (m the length
+    rounded up to 32; the compiled HLO's ``reduce-window`` shows
+    ``pad=14_14`` at n = 100, ``15_16`` at n = 33), each window summed left
+    to right, then the window sums the same way until at most 32 remain,
+    and those left to right. That order is what makes the float-derived
+    integers of the mapper agree with the JAX package; a device reduction
+    (``torch.sum``) would choose its own."""
     while x.shape[-1] > SUM_CHUNK:
         n = x.shape[-1]
         m = -(-n // SUM_CHUNK) * SUM_CHUNK
         if m != n:
-            x = torch.nn.functional.pad(x, (0, m - n))
+            lo = (m - n) // 2
+            x = torch.nn.functional.pad(x, (lo, m - n - lo))
         x = _sequential_sum(x.reshape(*x.shape[:-1], m // SUM_CHUNK, SUM_CHUNK))
     return _sequential_sum(x)
 
@@ -189,68 +195,6 @@ def chain_stats(
         mass,
         corners,
     )
-
-
-# XLA's CPU log of float32, which the JAX mapper runs: the Cephes
-# polynomial of XLA's CPU backend (Eigen's plog), with the multiply-adds
-# that LLVM fuses into single-rounding multiply-adds. torch.log and
-# torch.log2 round differently in the last bit for about one input in ten.
-_LOG_P = tuple(float(np.float32(p)) for p in (
-    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
-    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
-    3.3333331174e-1))
-_LOG_Q1 = float(np.float32(-2.12194440e-4))
-_LOG_Q2 = float(np.float32(0.693359375))
-_SQRTHF = float(np.float32(0.707106781186547524))
-_MIN_NORMAL = float(np.float32(2.0**-126))
-
-
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """float32 a * b + c rounded once, as a fused multiply-add. The product
-    of two float32 values is exact in float64. Their sum with c is rounded
-    to odd in float64: an inexact sum (its error comes from a TwoSum) whose
-    last bit is even moves one step towards the exact value. Rounding to
-    odd at 53 bits and then to nearest at 24 bits is the correct rounding,
-    also where the float64 sum alone would land on a float32 midpoint."""
-    if isinstance(a, torch.Tensor):
-        a = a.double()
-    if isinstance(c, torch.Tensor):
-        c = c.double()
-    p = a * b
-    s = p + c
-    pb = s - p
-    err = (p - (s - pb)) + (c - pb)
-    bits = s.view(torch.int64)
-    step = torch.where((err > 0) == (s > 0), 1, -1)
-    bits = torch.where((err != 0) & ((bits & 1) == 0), bits + step, bits)
-    return bits.view(torch.float64).float()
-
-
-def xla_log(x: torch.Tensor) -> torch.Tensor:
-    """Natural log of positive float32 ``x``, bit for bit as XLA's CPU
-    backend computes it (finite positive inputs: the mapper's expected hit
-    counts). Plain IEEE float32/float64 operations and bit moves, so the
-    CPU and the card give the same bits."""
-    p = _LOG_P
-    x = torch.clamp(x, min=_MIN_NORMAL)
-    bits = x.view(torch.int32)
-    e = ((bits >> 23) - 0x7F).to(torch.float32) + 1.0
-    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)   # mantissa in [0.5, 1)
-    small = m < _SQRTHF
-    tmp = torch.where(small, m, 0.0)
-    m = m - 1.0
-    e = e - small.to(torch.float32)
-    m = m + tmp
-    x2 = m * m
-    x3 = x2 * m
-    y = _fma(_fma(m, p[0], p[1]), m, p[2])
-    y1 = _fma(_fma(m, p[3], p[4]), m, p[5])
-    y2 = _fma(_fma(m, p[6], p[7]), m, p[8])
-    y = _fma(_fma(y, x3, y1), x3, y2)
-    y = _fma(y, x3, _LOG_Q1 * e)
-    m = m - x2 * 0.5
-    m = m + y
-    return m + _LOG_Q2 * e
 
 
 def anchor_weights(

@@ -6,13 +6,28 @@ overlap on the forward read, take each partition's interval, charge
 members for uncovered flanks, sum a running log10 denominator under the
 nMatch*1.2 gate, and convert to Phred capped at 254. The per-candidate
 loops are unrolled over the small candidate axis, in the JAX order.
+
+The float arithmetic is the JAX function's as XLA compiles it under
+``jax.jit`` on the CPU: a division by a constant becomes a multiply by its
+float32 reciprocal, ``-10 log10`` one multiply of the log, the log10-sum's
+multiply and add one multiply-add, and ``exp``, ``log1p``, ``log`` and
+``pow`` XLA's own functions (``ops/xla_math.py``). So a mapping quality
+whose float lies within a few ulps of an integer truncates as the JAX
+package's does, on the CPU and on the card.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from blasr_tpu_torch.ops.xla_math import INV_LN10, fma_f32, pow10, xla_exp, xla_log, xla_log1p
+
 LOG10 = 2.302585092994046
+_f32 = np.float32
+INV_TEN = float(_f32(0.1))                     # x / 10.0
+INV_LOG10 = float(_f32(1) / _f32(LOG10))       # x / LOG10
+MINUS_TEN_INV_LN10 = float(_f32(-10) * _f32(INV_LN10))   # -10 * log10(x) = log(x) * this
 MAX_PHRED = 254
 WIGGLE = 5          # MAPQV_END_ALIGN_WIGGLE
 MIN_OVERLAP = 0.75  # minFractionToBeConsideredOverlapping
@@ -32,7 +47,28 @@ def map_qv_reference(
     ins_cost: int = 5,
     del_cost: int = 5,
 ) -> torch.Tensor:
-    """Per-candidate mapQV (B, CD) int32."""
+    """Per-candidate mapQV (B, CD) int32: ``map_qv_float`` truncated."""
+    q = map_qv_float(scores, valid, q_lo, q_hi, n_match, n_mismatch, n_ins, n_del,
+                     mismatch_prob=mismatch_prob, ins_cost=ins_cost, del_cost=del_cost)
+    return torch.clamp(q, 0, MAX_PHRED).to(torch.int32)
+
+
+def map_qv_float(
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    q_lo: torch.Tensor,
+    q_hi: torch.Tensor,
+    n_match: torch.Tensor,
+    n_mismatch: torch.Tensor,
+    n_ins: torch.Tensor,
+    n_del: torch.Tensor,
+    *,
+    mismatch_prob: int = 15,
+    ins_cost: int = 5,
+    del_cost: int = 5,
+) -> torch.Tensor:
+    """Per-candidate mapping quality (B, CD) float32 before the clamp to
+    [0, 254] and the truncation to an integer."""
     i32, f32 = torch.int32, torch.float32
     B, CD = scores.shape
     dev = scores.device
@@ -40,7 +76,7 @@ def map_qv_reference(
 
     prob = -(
         mismatch_prob * n_mismatch + ins_cost * n_ins + del_cost * n_del
-    ).to(f32) / torch.full((B, CD), 10.0, dtype=f32, device=dev)
+    ).to(f32) * INV_TEN
 
     order = torch.argsort(torch.where(valid, scores, 2**30), dim=1, stable=True)
 
@@ -104,42 +140,38 @@ def map_qv_reference(
         wiggle & v, -0.5 * 15.0 * torch.clamp(flank, min=0).to(f32), 0.0
     )
 
-    denom_p, size_p = [], []
-    for p in range(CD):
-        member = (pid == p) & v
-        denom = torch.full((B,), NEG, dtype=f32, device=dev)
-        maxnm = torch.zeros(B, dtype=f32, device=dev)
-        started = torch.zeros(B, dtype=torch.bool, device=dev)
-        for m in range(CD):
-            is_m = member[:, m]
-            first = is_m & ~started
-            maxnm = torch.where(is_m, torch.maximum(maxnm, nm[:, m]), maxnm)
-            gate = nm[:, m] * 1.2 >= maxnm
-            add = first | (is_m & gate)
-            mx = torch.maximum(denom, pr[:, m])
-            mn = torch.minimum(denom, pr[:, m])
-            # full-tensor divisor: a scalar divisor may become a multiply by
-            # its reciprocal on the card, which rounds differently
-            lp = torch.log1p(torch.exp((mn - mx) * LOG10))
-            summed = mx + lp / torch.full_like(lp, LOG10)
-            denom = torch.where(add, torch.where(first, pr[:, m], summed), denom)
-            started = started | is_m
-        denom_p.append(denom)
-        size_p.append(torch.sum(member, dim=1).to(i32))
-    denom = torch.gather(torch.stack(denom_p, dim=1), 1, pidc)
-    psize = torch.gather(torch.stack(size_p, dim=1), 1, pidc)
+    # the log10-sum denominator of every partition at once: partitions
+    # along dim 1, members taken in order
+    member = (pid[:, None, :] == torch.arange(CD, device=dev)[None, :, None]) & v[:, None, :]
+    denom = torch.full((B, CD), NEG, dtype=f32, device=dev)
+    maxnm = torch.zeros((B, CD), dtype=f32, device=dev)
+    started = torch.zeros((B, CD), dtype=torch.bool, device=dev)
+    for m in range(CD):
+        is_m = member[:, :, m]
+        nm_m, pr_m = nm[:, m : m + 1], pr[:, m : m + 1]
+        first = is_m & ~started
+        maxnm = torch.where(is_m, torch.maximum(maxnm, nm_m), maxnm)
+        gate = nm_m * 1.2 >= maxnm
+        add = first | (is_m & gate)
+        mx = torch.maximum(denom, pr_m)
+        mn = torch.minimum(denom, pr_m)
+        lp = xla_log1p(xla_exp((mn - mx) * LOG10))
+        summed = fma_f32(lp, INV_LOG10, mx)
+        denom = torch.where(add, torch.where(first, pr_m, summed), denom)
+        started = started | is_m
+    denom = torch.gather(denom, 1, pidc)
+    psize = torch.gather(torch.sum(member, dim=2).to(i32), 1, pidc)
 
     sub = pr - denom
-    expo = torch.pow(10.0, sub)
+    expo = pow10(sub)
     one_minus = 1.0 - expo
     q = torch.where(
         one_minus <= 0.0,
         float(MAX_PHRED),
-        -10.0 * torch.log10(torch.clamp(one_minus, min=1e-30)),
+        xla_log(torch.clamp(one_minus, min=1e-30)) * MINUS_TEN_INV_LN10,
     )
     q = torch.where(sub < -20.0, 0.0, q)
     q = torch.where(psize <= 1, float(MAX_PHRED), q)
-    q = torch.clamp(q, 0, MAX_PHRED).to(i32)
 
     inv = torch.argsort(order, dim=1, stable=True)
     return torch.gather(q, 1, inv)

@@ -24,7 +24,8 @@ Phases, each of which must pass:
      (scripts/micro_dma.py); each with its per-call time (CUDA events
      around back-to-back calls), its device time (CUDA-graph replay), its
      bound and, where one PyTorch call computes the same function, that
-     call's times;
+     call's times; each DP row names its kernel instance (W, quality,
+     guided, matrix) and its device ns per anti-diagonal step;
   4. the FASTA bench corpus through run_mapping on the card at the bench
      operating point (warm-up, timed runs with every kernel launch counter
      reset just before the first, a per-stage clock run), every timed
@@ -306,12 +307,15 @@ def compare_dp(args, W: int, L: int, mode: str, kind: str, knots=None, scores=No
     dev_ms = graph_ms(call, reps=3)
     b_ms, b_by = dp_bound(DP_ITEMS, L, T, W, mode, guided=knots is not None,
                           matrix=scores.matrix is not None)
+    instance = (f"banded_dp_kernel<W={W}, quality={mode}, guided={knots is not None}, "
+                f"matrix={scores.matrix is not None}>")
     row = {"W": W, "L": L, "I": DP_ITEMS, "S": S, "mode": mode, "kind": kind,
-           "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "instance": instance, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+           "ns_per_step": dev_ms * 1e6 / S, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "items_aligned": n_aligned}
-    log(f"dp[{kind}] W={W} L={L} I={DP_ITEMS} quality {mode}: max_abs_err={err} kernel "
-        f"{ms:.3f} ms (device {dev_ms:.3f} ms) plain {plain_ms:.1f} ms bound {b_ms:.4f} ms ({b_by}); "
-        f"{n_aligned} items aligned")
+    log(f"dp[{kind}] {instance} L={L} I={DP_ITEMS}: max_abs_err={err} kernel "
+        f"{ms:.3f} ms (device {dev_ms:.3f} ms, {row['ns_per_step']:.1f} ns per step of {S}) "
+        f"plain {plain_ms:.1f} ms bound {b_ms:.4f} ms ({b_by}); {n_aligned} items aligned")
     if err != 0:
         raise AssertionError(
             f"banded_dp[{kind}] kernel disagrees with the plain version at W={W} L={L} "

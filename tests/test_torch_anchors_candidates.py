@@ -19,6 +19,7 @@ from blasr_tpu_torch.interop import device_index_from_numpy
 from blasr_tpu_torch.ops import anchors as tanc
 from blasr_tpu_torch.ops import candidates as tcand
 from blasr_tpu_torch.ops import mapqv as tmq
+from blasr_tpu_torch.ops import xla_math
 from blasr_tpu_torch.pipeline import mapper as tmap
 
 from conftest import mutate_read
@@ -149,7 +150,7 @@ def test_xla_log_matches_xla_cpu_log():
     x = np.exp(rng.uniform(-14, 14, 200_000)).astype(np.float32)
     x = np.concatenate([x, np.float32(2.0) ** np.arange(-20, 21, dtype=np.float32)])
     ref = np.asarray(jax.jit(jnp.log)(jnp.asarray(x)))
-    np.testing.assert_array_equal(ref, tcand.xla_log(torch.from_numpy(x)).numpy())
+    np.testing.assert_array_equal(ref, xla_math.xla_log(torch.from_numpy(x)).numpy())
 
 
 def _fma_exact(a, b, c):
@@ -164,7 +165,7 @@ def _fma_exact(a, b, c):
 
 
 def test_fma_rounds_once():
-    """``_fma`` against the exactly rounded a * b + c: on random float32
+    """``fma_f32`` against the exactly rounded a * b + c: on random float32
     triples and on sums whose float64 rounding lands on a float32
     midpoint, where rounding twice would round to even the wrong way."""
     rng = np.random.default_rng(11)
@@ -180,7 +181,7 @@ def test_fma_rounds_once():
     b = np.concatenate([b, [mid, mid, mid, mid]]).astype(np.float32)
     c = np.concatenate([c, [tiny, -tiny, -tiny, np.float32(0)]]).astype(np.float32)
     want = np.array([_fma_exact(x, y, z) for x, y, z in zip(a, b, c)], np.float32)
-    got = tcand._fma(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    got = xla_math.fma_f32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
     np.testing.assert_array_equal(want, got)
     assert got[n] == np.float32(1 + 2.0**-11 + 2.0**-23)   # rounding twice gives 1 + 2^-11
     assert got[n + 1] == np.float32(1 + 2.0**-11)

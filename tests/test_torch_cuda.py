@@ -162,6 +162,104 @@ def test_banded_dp_matrix_mode_matches_plain(dev, W, mode, guided):
     _assert_equal_results(got, ref)
 
 
+MATRIX = (-5, -2, 6, 6, 0, -2, -5, 6, 6, 0, 6, 6, -5, 6, 1, 6, 6, 6, -5, 0, 0, 0, 2, 0, 0)
+
+
+def _run_both(dev, args, sched, q, W, knots=None, scores=None):
+    """The kernel (on the card) and the plain version (on the CPU) on the
+    same inputs; ``sched`` is the shared (S,) schedule, or None with
+    ``knots``."""
+    from blasr_tpu_torch.ops.banded_align import AlignScores, banded_align_plain, qoff_from_knots
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
+
+    sc = scores or AlignScores()
+    S = args[0].shape[1] + args[2].shape[1] - 1
+    ref = banded_align_plain(*args, qoff_from_knots(knots, S) if knots is not None else sched,
+                             q, scores=sc, with_traceback=True, band_width=W)
+    got = banded_align(*[a.to(dev) for a in args], None if sched is None else sched.to(dev),
+                       None if q is None else q.to(dev),
+                       knots=None if knots is None else knots.to(dev),
+                       scores=sc, with_traceback=True, band_width=W)
+    torch.cuda.synchronize()
+    _assert_equal_results(got, ref)
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256])
+@pytest.mark.parametrize("mode", ["none", "single", "dual"])
+@pytest.mark.parametrize("sched", ["shared", "guided"])
+@pytest.mark.parametrize("matrix", [False, True])
+def test_banded_dp_every_instance_matches_plain(dev, W, mode, sched, matrix):
+    """Every instance (band width x quality mode x schedule x scores) on
+    ragged reads (qlen) and target cuts (tlo, thi)."""
+    from blasr_tpu_torch.ops.banded_align import AlignScores
+
+    args = _dp_case(W + 6, W)
+    I, L = args[0].shape
+    q = _qual(mode, I, L, W + 7)
+    knots = _knots(W + 8, W) if sched == "guided" else None
+    _run_both(dev, args[:5], args[5] if sched == "shared" else None, q, W, knots=knots,
+              scores=AlignScores(matrix=MATRIX if matrix else None))
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256])
+@pytest.mark.parametrize("mode", ["none", "single", "dual"])
+def test_banded_dp_schedule_steps_outside_0_1(dev, W, mode):
+    """A shared schedule whose steps go back and jump ahead by up to 2 (the
+    band shifts by -3..+4), and guided knots that climb past L - W up to
+    L (the per-item plain version takes steps in {0, 1}: knots
+    nondecreasing, at most 64 apart): bit-equal to the plain version."""
+    args = _dp_case(W + 9, W)
+    I, L = args[0].shape
+    S = L + args[2].shape[1] - 1
+    rng = np.random.default_rng(W)
+    walk = np.cumsum(rng.integers(-1, 4, S)) // 2
+    qoff = torch.from_numpy(np.clip(walk - 40, 0, L).astype(np.int32))
+    deltas = np.diff(qoff.numpy())
+    assert (deltas < 0).any() and (deltas > 1).any()
+    q = _qual(mode, I, L, W + 10)
+    _run_both(dev, args[:5], qoff, q, W)
+    from blasr_tpu_torch.ops.banded_align import n_knots
+
+    climb = np.cumsum(rng.integers(0, 65, (I, n_knots(S))), axis=1) - 300
+    knots = torch.from_numpy(np.clip(climb, 0, L).astype(np.int32))
+    assert (knots > L - W).any()
+    _run_both(dev, args[:5], None, q, W, knots=knots)
+
+
+@pytest.mark.parametrize("mode", ["none", "single"])
+def test_banded_dp_long_read_at_w256(dev, mode):
+    """L = 8192 at W = 256, the longest bucket the band width rule holds
+    (params.band_width_for): two items, shared and guided."""
+    from blasr_tpu_torch.ops.banded_align import make_qoff_num
+
+    I, L = 2, 8192
+    T = L + 256
+    rng = np.random.default_rng(8192)
+    Q = rng.integers(0, 4, (I, L)).astype(np.uint8)
+    Tc = rng.integers(0, 4, (I, T)).astype(np.uint8)
+    Tc[:, 128 : 128 + L] = np.where(rng.random((I, L)) < 0.1, (Q + 1) % 4, Q)
+    args = [torch.from_numpy(a) for a in (
+        Q, np.array([L, L - 1000], np.int32), Tc, np.array([0, 5], np.int32),
+        np.array([T, T - 7], np.int32))]
+    qoff = make_qoff_num(L, T, 256, 128, 33437)
+    q = _qual(mode, I, L, 11)
+    _run_both(dev, args, qoff, q, 256)
+    from blasr_tpu_torch import bench
+
+    knots = bench.deviating_knots(I, L, T, 256, 128, 33437, seed=3)
+    _run_both(dev, args, None, q, 256, knots=knots)
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256])
+def test_banded_dp_one_item(dev, W):
+    case = _dp_case(W + 12, W)
+    args = [a[:1] for a in case[:5]] + [case[5]]
+    I, L = args[0].shape
+    assert I == 1
+    _run_both(dev, args[:5], args[5], _qual("single", I, L, W), W)
+    _run_both(dev, args[:5], None, None, W, knots=_knots(W + 13, W)[:1])
+
+
 def test_gather_kernels_match_plain(dev):
     from blasr_tpu_torch.ops.gather import (
         gather_rows, gather_rows_plain, gather_spans, gather_spans_plain,
@@ -268,6 +366,35 @@ def test_xla_log_is_the_same_on_the_card(dev):
     valid = torch.ones(nh.shape, dtype=torch.bool)
     assert torch.equal(anchor_weights(nh.to(dev), valid.to(dev), 4_600_000, 128, 0).cpu(),
                        anchor_weights(nh, valid, 4_600_000, 128, 0))
+
+
+def test_mapq_math_is_the_same_on_the_card(dev):
+    """MAPQ's copies of XLA's exp, log1p, log and pow(10, x), and the
+    mapping quality built from them, give the card the CPU's bits."""
+    from blasr_tpu_torch.ops import xla_math
+    from blasr_tpu_torch.ops.mapqv import map_qv_float
+
+    rng = np.random.default_rng(6)
+    cases = {
+        xla_math.xla_exp: rng.uniform(-90, 40, 200_000),
+        xla_math.xla_log1p: np.concatenate([rng.uniform(0, 1, 100_000),
+                                            np.exp(rng.uniform(-40, 0, 100_000))]),
+        xla_math.xla_log: np.exp(rng.uniform(-69, 40, 200_000)),
+        xla_math.pow10: rng.uniform(-50, 40, 200_000),
+    }
+    for fn, x in cases.items():
+        x = torch.from_numpy(x.astype(np.float32))
+        assert torch.equal(fn(x.to(dev)).cpu().view(torch.int32), fn(x).view(torch.int32)), fn
+    B, CD = 4096, 4
+    n_err = torch.from_numpy(np.sort(rng.integers(0, 80, (B, CD)), axis=1).astype(np.int32))
+    z = torch.zeros((B, CD), dtype=torch.int32)
+    args = (-4000 + 5 * n_err, torch.ones((B, CD), dtype=torch.bool), z,
+            torch.full((B, CD), 900, dtype=torch.int32),
+            torch.full((B, CD), 800, dtype=torch.int32), z, n_err, z)
+    kw = dict(mismatch_prob=1, ins_cost=1, del_cost=1)
+    cpu = map_qv_float(*args, **kw)
+    card = map_qv_float(*(a.to(dev) for a in args), **kw).cpu()
+    assert torch.equal(card.view(torch.int32), cpu.view(torch.int32))
 
 
 def test_kernel_wrappers_validate_inputs(dev):

@@ -80,6 +80,21 @@ def test_map_batch_wire_bytes_equal_jax(corpus, W, emit_moves):
     assert n >= 2
 
 
+@pytest.mark.parametrize("max_anchors", [100, 33])
+def test_map_batch_wire_bytes_equal_jax_off_multiples_of_32(corpus, max_anchors):
+    """An anchor cap that is no multiple of 32: the window weights, the mean
+    diagonals and the slope fit sum over lengths where XLA pads its
+    32-wide reduction windows on both ends."""
+    index, reads = corpus
+    params = dataclasses.replace(BASE, max_anchors_per_read=max_anchors)
+    jm = jmap.Mapper(index, params)
+    tm = tmap.Mapper(index, params, device="cpu")
+    for b in batch_reads(reads, params.batch_size, params.max_read_len):
+        jr = jm.map_batch(b.codes, b.lengths)
+        tr = tm.map_batch(b.codes, b.lengths)
+        np.testing.assert_array_equal(np.asarray(jr.wire), tr.wire.numpy())
+
+
 def test_run_mapping_m4_equals_jax_with_escalation(corpus):
     index, reads = corpus
     jrec, junm = jax_run_mapping(index, reads, BASE)
