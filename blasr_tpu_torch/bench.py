@@ -99,6 +99,13 @@ def bench_params(**overrides) -> MappingParams:
     return MappingParams(**kw)
 
 
+def config3_params() -> MappingParams:
+    """The bench operating point with two alignments per read and their
+    move strings: the reference measurement's config 3 (``-bestn 2 -m 5``,
+    ``scripts/bench_config34.py``)."""
+    return bench_params(best_n=2, emit_moves=True)
+
+
 def true_locus_windows(genome, reads, L: int, pad2: int = 128):
     """The DP inputs of simulated reads at their true loci, as the mapper
     places them: each read's forward-strand codes cut to ``L`` (N-padded),

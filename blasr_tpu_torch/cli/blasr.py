@@ -1,4 +1,4 @@
-"""Command line of the port: -m 4 mapping on one device.
+"""Command line of the port: mapping on one device to -m 0, 1, 2, 3, 4 or 5.
 
     python -m blasr_tpu_torch.cli.blasr reads.{fa,fastq,sam} genome.fa -m 4 \\
         [-out FILE] [-header] [-device cuda|cpu] [mapping options]
@@ -10,7 +10,11 @@ that names it. FASTQ quality values, and the ``iq``/``sq`` tracks of a SAM
 read file, scale the DP's costs unless ``-ignoreQualities`` is given.
 ``-useGuidedAlign`` bands each read along its own anchor chain (the wide
 buckets keep the base band of 128); ``-scoreMatrix "25 ints"`` scores
-substitutions from a 5x5 matrix.
+substitutions from a 5x5 matrix. ``-bestn N`` reports up to N alignments
+per read, each secondary admitted on the host as the reference does.
+``-m 0``, ``1``, ``2``, ``3`` and ``5`` print the verbose formats (0, 2 and
+5 with alignment strings, 3 as a VULGAR string, all from the walk's move
+strings).
 ``-device`` defaults to ``cuda`` and never falls back to the CPU.
 """
 
@@ -39,7 +43,7 @@ SUPPORTED = {
 def build_parser():
     p = build_arg_parser()
     p.prog = "blasr_tpu_torch"
-    p.description = "BLASR-capability long-read aligner, PyTorch/CUDA port (-m 4)"
+    p.description = "BLASR-capability long-read aligner, PyTorch/CUDA port (-m 0-5)"
     p.add_argument("-device", default="cuda", help="torch device to map on (cuda or cpu)")
     return p
 
@@ -57,8 +61,8 @@ def unsupported_options(parser, args) -> list[str]:
             continue
         if getattr(args, dest, defaults[dest]) != defaults[dest]:
             bad.append(action.option_strings[0])
-    if args.m != 4 or args.sam:
-        bad.append(f"-m {args.m}" if not args.sam else "-sam")
+    if args.sam:
+        bad.append("-sam")
     if args.pvaltype not in (0, 1):
         bad.append(f"-pvaltype {args.pvaltype}")
     return bad
@@ -71,7 +75,7 @@ def main(argv=None) -> int:
     if bad:
         raise SystemExit(
             "blasr_tpu_torch: not supported by the port yet: " + ", ".join(bad)
-            + " (the port maps -m 4 on one device; see ROADMAP.md)"
+            + " (the port maps to -m 0-5 on one device; see ROADMAP.md)"
         )
     params = params_from_args(args)
     params.validate()
@@ -80,6 +84,7 @@ def main(argv=None) -> int:
     from blasr_tpu_torch.io.batching import read_records
     from blasr_tpu_torch.ops import dp_launch_counts, launch_counts
     from blasr_tpu_torch.output.m4 import write_m4
+    from blasr_tpu_torch.output.verbose import write_verbose
     from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
 
     t_start = time.time()
@@ -92,7 +97,10 @@ def main(argv=None) -> int:
     t_map = time.time() - t0
     out = sys.stdout if args.out == "-" else open(args.out, "w")
     try:
-        write_m4(records, out, header=args.header)
+        if args.m == 4:
+            write_m4(records, out, header=args.header)
+        else:
+            write_verbose(records, reads, index, out, fmt=args.m, header=args.header)
     finally:
         if out is not sys.stdout:
             out.close()

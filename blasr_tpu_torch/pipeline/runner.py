@@ -1,11 +1,15 @@
 """End-to-end mapping run: reads -> alignment records, on one device.
 
-Port of ``blasr_tpu.pipeline.runner.run_mapping`` for the -m 4 serving
-path: padded length-bucketed batches go through ``Mapper.map_batch`` on
-``device`` while earlier batches finalize on the host (dispatch-ahead),
-records are converted to contig coordinates and filtered, and reads whose
-best record shows the narrow-band clipping signature are re-mapped through
-the wide unguided band (band escalation) keeping the better score.
+Port of ``blasr_tpu.pipeline.runner.run_mapping``: padded
+length-bucketed batches go through ``Mapper.map_batch`` on ``device``
+while earlier batches finalize on the host (dispatch-ahead), records are
+converted to contig coordinates and filtered, and reads whose best record
+shows the narrow-band clipping signature are re-mapped through the wide
+unguided band (band escalation) keeping the better score. With
+``best_n > 1`` each secondary (rank >= 1) passes the reference's host
+admission (``pipeline/secondary_refine.py``: SDP over the candidate's
+chain, the ``min_interval`` anchor gate, ``-maxScore`` on the SDP score)
+and takes the SDP chain's span where the two spans disagree.
 
 m4 coordinates: qstrand is always 0; when tstrand == 1 the target interval
 is in reverse-complement coordinates of the contig; qstart/qend always
@@ -31,6 +35,14 @@ from blasr_tpu_torch.pipeline.mapper import (
     WireResult,
     unpack_result,
 )
+from blasr_tpu_torch.pipeline.secondary_refine import (
+    blocks_to_ops,
+    reference_anchor_list,
+    revcomp_codes,
+    sdp_interval_align,
+    stats_from_blocks,
+    sum_anchors_window,
+)
 from blasr_tpu_torch.pipeline.traceback import AlignmentPath
 
 
@@ -49,6 +61,13 @@ class MappingMetrics:
     finalize_seconds: float = 0.0   # host time turning results into records
     wall_seconds: float = 0.0
     escalated_reads: int = 0        # reads re-mapped through the wide band
+    # the -bestn secondary admission (inside finalize): host seconds, rank
+    # >= 1 records it took, those the min_interval gate dropped, and those
+    # admitted with the SDP chain's span, score and ops
+    secondary_seconds: float = 0.0
+    secondary_checked: int = 0
+    secondary_gated: int = 0
+    secondary_replaced: int = 0
     buckets: dict = dataclasses.field(default_factory=dict)
 
     def to_dict(self) -> dict:
@@ -80,6 +99,7 @@ class AlignmentRecord:
     tend_fwd: int = 0
     path: Optional[AlignmentPath] = None
     read_index: int = -1
+    nhits_considered: int = 0
 
 
 def _best_by_read(records) -> dict:
@@ -113,7 +133,6 @@ def _check_supported(params: MappingParams, reads: Sequence[Read]) -> None:
         "adaptive_cd": params.adaptive_cd,
         "sensitive_retry": params.sensitive_retry,
         "max_expand > min_expand (expand retries)": params.max_expand > params.min_expand,
-        "best_n > 1 (SDP secondaries)": params.best_n > 1,
         "place_repeats_randomly": params.place_repeats_randomly,
     }
     bad = [name for name, on in unsupported.items() if on]
@@ -168,7 +187,7 @@ def run_mapping(
         res = res._replace(wire=res.wire.cpu().numpy())
         t1 = time.time()
         met.wait_seconds += t1 - t0
-        out_b, unm_b = _finalize_batch(mapper, batch, res)
+        out_b, unm_b = _finalize_batch(mapper, batch, res, met)
         out.extend(out_b)
         unmapped.extend(unm_b)
         met.finalize_seconds += time.time() - t1
@@ -214,10 +233,10 @@ def run_mapping(
                 index, retry_reads, esc, device=device, metrics=sub, clock=clock
             )
             met.escalated_reads += len(retry_reads)
-            met.dispatch_seconds += sub.dispatch_seconds
-            met.wait_seconds += sub.wait_seconds
-            met.finalize_seconds += sub.finalize_seconds
-            met.total_dp_cells += sub.total_dp_cells
+            for f in ("dispatch_seconds", "wait_seconds", "finalize_seconds", "total_dp_cells",
+                      "secondary_seconds", "secondary_checked", "secondary_gated",
+                      "secondary_replaced"):
+                setattr(met, f, getattr(met, f) + getattr(sub, f))
             best2: dict[str, int] = {}
             for r in r2:
                 best2[r.qname] = min(best2.get(r.qname, 0), r.score)
@@ -259,11 +278,114 @@ def _paths_from_device(res) -> list[Optional[AlignmentPath]]:
     return out
 
 
+def _admit_secondary(
+    mapper: Mapper, batch: ReadBatch, res, b: int, i2: int,
+    path: AlignmentPath, anchor_cache: dict, met: MappingMetrics,
+) -> Optional[tuple[AlignmentPath, int]]:
+    """The -bestn secondary admission of rank >= 1 record ``i2`` (row ``b``
+    of the batch), reference semantics: each candidate interval's reported
+    alignment is its SDPAlign (Local, detailed) result and the -maxScore cut
+    acts on THAT score (AlignIntervals Blasr.cpp:1716-1724 ->
+    RemoveLowQualityAlignments :2618 truncation). Returns the record's
+    (path, score), or None when the reference never emits it: no chain,
+    an anchor sum over the interval window at or below ``min_interval``,
+    or an SDP score above ``max_score``. The DP's path and score stay when
+    the SDP chain covers the same span (0.9 overlap on both axes); else
+    the record takes the chain's span, score, stats and ops."""
+    params = mapper.params
+    index = mapper.index
+    seqdb = index.seqdb
+    genome = index.genome
+    met.secondary_checked += 1
+    st = int(res.sel_strand[i2])
+    n_b = int(batch.lengths[b])
+    qc = batch.codes[b, :n_b]
+    if st == 1:
+        qc = revcomp_codes(qc)
+    t0_i = int(res.sel_t0[i2])
+    # PASS 1, chain discovery: SDP Local on an unstretched window around
+    # the device chain corners with end matching off (prefix_len=0, so
+    # window-edge junk cannot seed the chain); its span reproduces the
+    # reference's interval corners
+    cd_i = int(res.sel_cd[i2])
+    g_lo_ch = int(res.cand_tlo[b, cd_i])
+    g_hi_ch = int(res.cand_thi[b, cd_i])
+    g_mid = (g_lo_ch + g_hi_ch) // 2
+    ci_w = int(seqdb.contig_of(min(max(g_mid, 0), seqdb.total_length - 1)))
+    c_lo = int(seqdb.starts[ci_w])
+    c_hi = c_lo + int(seqdb.lengths()[ci_w])
+    w0_lo = max(g_lo_ch - 64, c_lo)
+    w0_hi = min(g_hi_ch + 64, c_hi)
+    sdp_kw = dict(
+        word=params.sdp_tuple_size,
+        match=params.match_score, mismatch=params.mismatch_score,
+        ins=params.insertion_score, dele=params.deletion_score,
+        indel_rate=params.indel_rate * 3,
+        affine_open=params.affine_open,
+        affine_extend=params.affine_extend,
+    )
+    _, b0 = sdp_interval_align(qc, genome[w0_lo:w0_hi], prefix_len=0, **sdp_kw)
+    if not b0:
+        return None
+    q_lo0 = b0[0][0]
+    q_hi0 = b0[-1][0] + b0[-1][2]
+    t_lo0 = w0_lo + b0[0][1]
+    t_hi0 = w0_lo + b0[-1][1] + b0[-1][2]
+    # interval-formation gate (StoreLargestIntervals minSize: SumAnchors
+    # over a readLen*(1+indelRate) window holding the cluster must EXCEED
+    # minInterval, FindMaxInterval.h:479); the anchor list of a (row,
+    # strand) is built once per batch, from the host's suffix array
+    L_int = int(n_b * (1 + params.indel_rate))
+    ws_lo = max(min(t_lo0, t_hi0 - L_int), c_lo)
+    ws_hi = min(max(t_hi0, t_lo0 + L_int), c_hi)
+    akey = (b, st)
+    if akey not in anchor_cache:
+        anchor_cache[akey] = reference_anchor_list(
+            qc, genome, index.sa, index.sa_kmers, index.k,
+            min_match=params.min_match_length,
+        )
+    _aq, at_r, al_r = anchor_cache[akey]
+    if sum_anchors_window(at_r, al_r, ws_lo, ws_hi) <= params.min_interval:
+        met.secondary_gated += 1
+        return None
+    # PASS 2, the reference's aligned interval: chain corners stretched by
+    # approximateMaxInsertionRate=1.3 times the unaligned read prefix and
+    # suffix (Blasr.cpp:1247-1263), full SDPAlign (Local, detailed,
+    # sdpPrefix=50)
+    w_lo = max(int(t_lo0 - q_lo0 * 1.3), c_lo)
+    w_hi = min(int(t_hi0 + (n_b - q_hi0) * 1.3), c_hi)
+    window = genome[w_lo:w_hi]
+    sdp_sc, sdp_blocks = sdp_interval_align(qc, window, **sdp_kw)
+    if not sdp_blocks or sdp_sc > params.max_score:
+        return None
+    q_s2 = sdp_blocks[0][0]
+    q_e2 = sdp_blocks[-1][0] + sdp_blocks[-1][2]
+    t_s2 = w_lo + sdp_blocks[0][1] - t0_i
+    t_e2 = w_lo + sdp_blocks[-1][1] + sdp_blocks[-1][2] - t0_i
+
+    def _agree(lo1, hi1, lo2, hi2):
+        ov = min(hi1, hi2) - max(lo1, lo2)
+        return ov / max(hi1 - lo1, hi2 - lo2, 1) >= 0.9
+
+    if _agree(path.q_start, path.q_end, q_s2, q_e2) and _agree(
+            path.t_start, path.t_end, t_s2, t_e2):
+        return path, int(res.sel_score[i2])
+    met.secondary_replaced += 1
+    nm, nx, ni, nd = stats_from_blocks(sdp_blocks, qc, window)
+    sdp_path = AlignmentPath(
+        q_start=q_s2, q_end=q_e2, t_start=t_s2, t_end=t_e2,
+        ops=blocks_to_ops(sdp_blocks), score=sdp_sc,
+        n_match=nm, n_mismatch=nx, n_ins=ni, n_del=nd,
+    )
+    return sdp_path, sdp_sc
+
+
 def _finalize_batch(
-    mapper: Mapper, batch: ReadBatch, device_res: WireResult
+    mapper: Mapper, batch: ReadBatch, device_res: WireResult, met: MappingMetrics
 ) -> tuple[list[AlignmentRecord], list[str]]:
-    """Records of one batch for best_n == 1: contig coordinates and the
-    reporting filters (maxScore, pct identity, alignment length, mapQV)."""
+    """Records of one batch: the secondary admission of rank >= 1 records
+    (``best_n > 1``), contig coordinates and the reporting filters
+    (maxScore, pct identity, alignment length, mapQV)."""
     params = mapper.params
     seqdb = mapper.index.seqdb
     res = unpack_result(device_res, params.dp_candidates)
@@ -280,6 +402,7 @@ def _finalize_batch(
     mapped_reads: set[int] = set()
     B = batch.codes.shape[0]
     lens = seqdb.lengths()
+    anchor_cache: dict = {}   # (batch row, strand) -> reference anchor list
     for i2, path in enumerate(paths):
         b = i2 // params.best_n
         if batch.indices[b] < 0:
@@ -287,6 +410,13 @@ def _finalize_batch(
         if path is None or not valid[i2]:
             continue
         score = int(scores[i2])
+        if i2 % params.best_n >= 1:
+            t_adm = time.time()
+            admitted = _admit_secondary(mapper, batch, res, b, i2, path, anchor_cache, met)
+            met.secondary_seconds += time.time() - t_adm
+            if admitted is None:
+                continue
+            path, score = admitted
         if score > params.max_score:
             continue
         if path.pct_similarity < params.min_pct_similarity:

@@ -3,7 +3,8 @@
 Port of ``AlignmentPath`` and the ``OP_*`` codes of
 ``blasr_tpu.pipeline.traceback``. A path built from the device walk carries
 its coordinates and stats, and optionally the walk's 2-bit packed move
-string (END->START order); ``ops`` unpacks it on first access.
+string (END->START order); ``ops`` unpacks it on first access. A path built
+from a secondary's SDP blocks carries its ops directly.
 """
 
 from __future__ import annotations
@@ -64,3 +65,16 @@ class AlignmentPath:
     def pct_similarity(self) -> float:
         n = self.n_match + self.n_mismatch + self.n_ins + self.n_del
         return 100.0 * self.n_match / n if n else 0.0
+
+    def cigar_runs(self) -> list[tuple[str, int]]:
+        """Run-length encoded ops as (op_char, length), M/I/D."""
+        ops = np.asarray(self.ops)
+        if ops.size == 0:
+            return []
+        chars = {OP_M: "M", OP_I: "I", OP_D: "D"}
+        ends = np.flatnonzero(np.diff(ops)) + 1
+        bounds = np.concatenate(([0], ends, [ops.size]))
+        return [
+            (chars[int(ops[bounds[i]])], int(bounds[i + 1] - bounds[i]))
+            for i in range(len(bounds) - 1)
+        ]

@@ -25,7 +25,9 @@ Phases, each of which must pass:
      around back-to-back calls), its device time (CUDA-graph replay), its
      bound and, where one PyTorch call computes the same function, that
      call's times; each DP row names its kernel instance (W, quality,
-     guided, matrix) and its device ns per anti-diagonal step;
+     guided, matrix) and its device ns per anti-diagonal step; then the
+     microbenchmark's span gathers once on their own, with the launch
+     counts reset, for K2' launches;
   4. the FASTA bench corpus through run_mapping on the card at the bench
      operating point (warm-up, timed runs with every kernel launch counter
      reset just before the first, a per-stage clock run), every timed
@@ -48,7 +50,15 @@ Phases, each of which must pass:
      prints the lines of run_mapping;
   8. -scoreMatrix through the CLI on the 256 FASTA reads: a matrix equal
      to the default scores prints phase 4's lines, a transition-favouring
-     matrix prints the lines of run_mapping and runs the matrix kernel.
+     matrix prints the lines of run_mapping and runs the matrix kernel;
+  9. config 3, -bestn 2 -m 5, on the FASTA corpus (bench.config3_params:
+     two alignments per read, move strings on the wire, the secondaries
+     admitted on the host): warm-up, one timed run, the per-stage clock;
+     every -m 5 line equal to the JAX package's read by read
+     (tools/jax_m5_reference.json), accuracy equal to phase 4's, the
+     host seconds of the secondary admission, the walk's launches and
+     device ms on one batch with and without moves; then the CLI with
+     -bestn 2 -m 5 on phase 4's 256 reads prints run_mapping's lines.
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and the exit code is not 0. Needs one CUDA card.
@@ -93,7 +103,10 @@ CLR_FASTQ_MD5 = "897fb8881c92d3fc33874e9a065602f7"
 # the JAX package's -m 4 lines of each corpus, per read (tools/jax_m4_reference.py),
 # and how many reads of each may differ from them on the card
 M4_REFERENCE = os.path.join(HERE, "tools", "jax_m4_reference.json")
-RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0}
+# the same for config 3's -m 5 lines on the FASTA corpus (tools/jax_m5_reference.py)
+M5_REFERENCE = os.path.join(HERE, "tools", "jax_m5_reference.json")
+RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0, "config3": 0}
+RECORD_FORMAT = {"fasta": "m4", "clr": "m4", "clr_guided": "m4", "config3": "m5"}
 # H100 SXM peaks: HBM 3.35 TB/s; INT32 ALU 132 SMs x 64 lanes x 1.98 GHz
 # (Hopper architecture white paper), the rate of the DP's integer work
 HBM_BYTES_PER_S = 3.35e12
@@ -117,6 +130,7 @@ KERNEL_META = {
     "banded_dp[matrix]": ("blasr_tpu_torch/csrc/banded_dp.cu",
                           "blasr_tpu/ops/banded_pallas.py:555"),
     "gather_spans": ("blasr_tpu_torch/csrc/gather.cu", "blasr_tpu/ops/dma_gather.py:38"),
+    "gather_spans[micro_dma]": ("blasr_tpu_torch/csrc/gather.cu", "scripts/micro_dma.py:115"),
     "gather_rows": ("blasr_tpu_torch/csrc/gather.cu", "blasr_tpu/ops/dma_gather.py:127"),
 }
 CLI_FLAGS = ["-m", "4", "-device", "cuda", "-minMatch", "14", "-nCandidates", "4",
@@ -136,6 +150,12 @@ def m4_digests(lines) -> dict:
         by_read.setdefault(name, []).append(line)
     return {name: hashlib.sha256("\n".join(ls).encode()).hexdigest()[:16]
             for name, ls in by_read.items()}
+
+
+def n_secondaries(records) -> int:
+    """Records beyond the first of their read: at best_n 2, the rank-1
+    records emitted (a read's records come from distinct ranks)."""
+    return len(records) - len({r.qname for r in records})
 
 
 def sorted_sha256(lines) -> str:
@@ -468,6 +488,25 @@ def span_case(src, starts, span: int, label: str) -> dict:
     return compare_gather(label, calls, {"N": N, "I": I, "span": span}, 2 * 4 * I * span + 4 * I)
 
 
+def micro_dma_path() -> int:
+    """K2' on its own path, the microbenchmark's: one span gather at each
+    of its spans, with the launch counts set to 0 just before and read just
+    after; the launches of K2's kernel in that run."""
+    import torch
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from blasr_tpu_torch.ops.gather import gather_spans
+
+    inputs = [(bench.span_gather_inputs(span, device="cuda"), span) for span in MICRO_DMA_SPANS]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for (src, starts), span in inputs:
+        gather_spans(src, starts, span)
+    torch.cuda.synchronize()
+    return launch_counts()["gather_spans"]
+
+
 def check_micro_dma() -> list:
     """K2' (scripts/micro_dma.py:dma_span_gather): the span gather at the
     TPU microbenchmark's own shapes through K2's kernel, against the plain
@@ -655,10 +694,13 @@ def check_cli_sam(genome_fa: str, clr_reads, index) -> dict:
             "launches": counts}
 
 
-def map_corpus(index, reads, params, n_timed: int, warmup: bool = True) -> dict:
+def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
+               formatter=None) -> dict:
     """One warm-up run (unless ``warmup`` is False), then ``n_timed`` timed
     runs (every launch counter reset just before the first, read just after
-    it), then one run with the per-stage clock."""
+    it), then one run with the per-stage clock. Each timed run's records
+    are kept as lines, -m 4 unless ``formatter`` (record -> line) says
+    otherwise."""
     import torch
 
     from blasr_tpu_torch import bench
@@ -667,13 +709,14 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True) -> dict:
     from blasr_tpu_torch.pipeline.mapper import StageClock
     from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
 
+    formatter = formatter or format_m4
     warm_s = 0.0
     if warmup:
         t0 = time.time()
         run_mapping(index, reads, params, device="cuda")
         torch.cuda.synchronize()
         warm_s = time.time() - t0
-    walls, m4_runs = [], []
+    walls, line_runs = [], []
     for k in range(n_timed):
         met = MappingMetrics()
         if k == 0:
@@ -683,7 +726,7 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True) -> dict:
         recs, unm = run_mapping(index, reads, params, device="cuda", metrics=met)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
-        m4_runs.append(([(r.qname, format_m4(r)) for r in recs], unm))
+        line_runs.append(([(r.qname, formatter(r)) for r in recs], unm))
         if k == 0:
             counts, by_shape = launch_counts(), dp_launch_counts()
             peak = torch.cuda.max_memory_allocated()
@@ -698,8 +741,9 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True) -> dict:
     log(f"  {len(reads)} reads: reads/s of the timed runs "
         + ", ".join(f"{len(reads) / w:.1f}" for w in walls)
         + (f" (warm-up run {warm_s:.1f} s)" if warmup else " (no warm-up run)")
-        + f"; records {len(records)}, unmapped {len(unmapped)}, "
-        f"escalated {met0.escalated_reads}; accuracy_true_locus {acc:.4f}")
+        + f"; records {len(records)} ({n_secondaries(records)} beyond the first of their read), "
+        f"unmapped {len(unmapped)}, escalated {met0.escalated_reads}; accuracy_true_locus "
+        f"{acc:.4f}")
     log(f"  host split: dispatch {met0.dispatch_seconds:.3f} s wait {met0.wait_seconds:.3f} s "
         f"finalize {met0.finalize_seconds:.3f} s; batches {met0.n_batches}; buckets {met0.buckets}")
     log(f"  peak torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB")
@@ -708,33 +752,40 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True) -> dict:
     log(f"  kernel launches in the first timed run: {counts}; DP by shape {by_shape}")
     return {"reads": len(reads), "walls_s": walls, "warm_s": warm_s,
             "reads_per_s": [len(reads) / w for w in walls], "accuracy_true_locus": acc,
-            "records": len(records), "unmapped": len(unmapped),
+            "records": len(records), "secondaries": n_secondaries(records),
+            "unmapped": len(unmapped),
             "escalated": met0.escalated_reads, "metrics": met0.to_dict(),
             "stage_seconds": stage, "clocked_s": clocked_s, "peak_bytes": peak,
-            "launches": counts, "dp_launches": by_shape, "m4_runs": m4_runs}
+            "launches": counts, "dp_launches": by_shape, "line_runs": line_runs}
 
 
-def load_m4_reference() -> dict:
-    """The JAX package's per-read -m 4 digests on the three corpora
-    (tools/jax_m4_reference.py writes them on the CPU)."""
-    with open(M4_REFERENCE) as f:
-        return json.load(f)
+def load_references() -> dict:
+    """The JAX package's per-read digests: -m 4 on the three corpora
+    (tools/jax_m4_reference.py) and config 3's -m 5 on the FASTA corpus
+    (tools/jax_m5_reference.py), both written on the CPU."""
+    refs = {}
+    for path in (M4_REFERENCE, M5_REFERENCE):
+        with open(path) as f:
+            refs.update(json.load(f))
+    return refs
 
 
 def check_records(corpus: str, res: dict, ref: dict, reads_path: str, out_dir) -> dict:
-    """Every timed run's -m 4 lines against the JAX package's, read by read:
-    a read differs when the digest of its lines differs, when only one side
-    has lines for it, or when only one side reports it unmapped. Writes the
-    first timed run's lines to <out_dir>/m4_<corpus>.m4 when ``out_dir`` is
-    given. Fails above RECORD_DIFF_LIMIT[corpus]."""
+    """Every timed run's lines (-m 4, or -m 5 for config 3) against the JAX
+    package's, read by read: a read differs when the digest of its lines
+    differs, when only one side has lines for it, or when only one side
+    reports it unmapped. Writes the first timed run's lines to
+    <out_dir>/<fmt>_<corpus>.<fmt> when ``out_dir`` is given. Fails above
+    RECORD_DIFF_LIMIT[corpus]."""
     ref = ref[corpus]
+    fmt = RECORD_FORMAT[corpus]
     with open(reads_path, "rb") as f:
         md5 = hashlib.md5(f.read()).hexdigest()
     if md5 != ref["reads_md5"]:
         raise AssertionError(f"{corpus}: reads md5 {md5} != the reference's {ref['reads_md5']}")
-    runs = res.pop("m4_runs")
+    runs = res.pop("line_runs")
     if out_dir:
-        with open(os.path.join(out_dir, f"m4_{corpus}.m4"), "w") as f:
+        with open(os.path.join(out_dir, f"{fmt}_{corpus}.{fmt}"), "w") as f:
             f.writelines(line + "\n" for _, line in runs[0][0])
     counts = []
     for k, (lines, unmapped) in enumerate(runs):
@@ -744,14 +795,14 @@ def check_records(corpus: str, res: dict, ref: dict, reads_path: str, out_dir) -
         diff |= set(unmapped) ^ set(ref["unmapped"])
         same_sorted = sorted_sha256([line for _, line in lines]) == ref["sha256_sorted"]
         counts.append(len(diff))
-        log(f"  -m 4 records against the JAX package's ({corpus}, timed run {k + 1}): "
+        log(f"  -m {fmt[1]} records against the JAX package's ({corpus}, timed run {k + 1}): "
             f"{len(diff)} reads differ{': ' + ', '.join(sorted(diff)[:5]) if diff else ''}; "
             f"{len(lines)} lines (JAX {ref['records']}), sorted sha256 "
             f"{'equal' if same_sorted else 'differs'}")
         if len(diff) > RECORD_DIFF_LIMIT[corpus]:
             raise AssertionError(
-                f"{corpus}: {len(diff)} reads' -m 4 lines differ from the JAX package's (limit "
-                f"{RECORD_DIFF_LIMIT[corpus]}); first {sorted(diff)[:5]}")
+                f"{corpus}: {len(diff)} reads' -m {fmt[1]} lines differ from the JAX package's "
+                f"(limit {RECORD_DIFF_LIMIT[corpus]}); first {sorted(diff)[:5]}")
     return {"reads_differing": counts, "limit": RECORD_DIFF_LIMIT[corpus]}
 
 
@@ -787,9 +838,11 @@ def profile_batch(index, reads, params) -> dict:
 
 
 def walk_profile(index, reads, params, lo: int = 512, hi: int = 768) -> dict:
-    """torch.profiler over the traceback walk of one batch of reads of
-    ``lo`` + 1 to ``hi`` bp: its kernel launches, device time and wall
-    time."""
+    """The traceback walk of one batch of reads of ``lo`` + 1 to ``hi`` bp:
+    its wall time without the profiler (the median of three calls, taken
+    first: the profiler's event processing outlasts its context and would
+    slow the calls after it), then one call under torch.profiler, tracing
+    the card only, for its kernel launches and device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -805,15 +858,22 @@ def walk_profile(index, reads, params, lo: int = 512, hi: int = 768) -> dict:
     def traced(*args, **kw):
         if out:
             return walk(*args, **kw)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            walk(*args, **kw)
+            torch.cuda.synchronize()
+            walls.append((time.time() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             tb = walk(*args, **kw)
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        out.update(reads=len(sub), wall_ms=(time.time() - t0) * 1e3,
+        out.update(reads=len(sub), unprofiled_ms=sorted(walls)[1],
                    launches=sum(e.count for e in kern),
                    device_ms=sum(e.self_device_time_total for e in kern) / 1e3)
+        if not out["launches"]:
+            raise AssertionError("the profiler saw no kernel of the walk")
         return tb
 
     mapper.walk_arrows_device = traced
@@ -866,10 +926,10 @@ def check_guided(genome_fa: str, reads_fq: str, clr_reads, index, unguided: dict
              for name, r in (("unguided", unguided), ("guided", res))}
     log(f"guided CLR accuracy {acc:.4f} (JAX package on the CPU {JAX_GUIDED_ACCURACY}); guided DP "
         f"launches {by}; walk of one batch of {walk_g['reads']} reads of 513-768 bp: "
-        f"{walk_g['launches']} "
-        f"kernel launches, {walk_g['device_ms']:.1f} ms device, {walk_g['wall_ms']:.1f} ms wall "
-        f"(unguided: {walk_u['launches']}, {walk_u['device_ms']:.1f} ms, {walk_u['wall_ms']:.1f} "
-        f"ms); walk share of the stage clock {100 * share['guided']:.1f}% (unguided CLR cell "
+        f"{walk_g['launches']} kernel launches, {walk_g['device_ms']:.1f} ms device, "
+        f"{walk_g['unprofiled_ms']:.1f} ms wall without the profiler (unguided: "
+        f"{walk_u['launches']}, {walk_u['device_ms']:.1f} ms, {walk_u['unprofiled_ms']:.1f} ms); "
+        f"walk share of the stage clock {100 * share['guided']:.1f}% (unguided CLR cell "
         f"{100 * share['unguided']:.1f}%)")
 
     sub = clr_reads[:256]
@@ -940,6 +1000,74 @@ def check_matrix(genome_fa: str, reads, index, cli: dict) -> dict:
             "default_cli_dp_launches": same_metrics["dpLaunches"]}
 
 
+def check_config3(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_dir,
+                  fasta: dict, cli: dict) -> dict:
+    """Config 3 (-bestn 2 -m 5) on the FASTA corpus: warm-up, one timed run
+    and the per-stage clock through run_mapping; every -m 5 line against
+    the JAX package's read by read; accuracy equal to the -m 4 run's and to
+    the JAX package's; every kernel launched; the walk of one batch of
+    513-768 bp reads with and without moves; then the CLI with -bestn 2
+    -m 5 on phase 4's 256 reads prints run_mapping's lines."""
+    import torch
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.ops import dp_launch_counts, reset_launch_counts
+    from blasr_tpu_torch.output.verbose import format_m5
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    params = bench.config3_params()
+    by_name = {r.name: r for r in reads}
+    log("config 3 (-bestn 2 -m 5) on the FASTA corpus through run_mapping:")
+    res = map_corpus(index, reads, params, n_timed=1,
+                     formatter=lambda r: format_m5(r, by_name[r.qname], index))
+    res["records_vs_jax"] = check_records("config3", res, refs, reads_fa, out_dir)
+    ref = refs["config3"]
+    acc = res["accuracy_true_locus"]
+    if acc != fasta["accuracy_true_locus"] or acc != ref["accuracy_true_locus"]:
+        raise AssertionError(f"config 3 accuracy_true_locus {acc:.4f}: the -m 4 run's is "
+                             f"{fasta['accuracy_true_locus']:.4f}, the JAX package's "
+                             f"{ref['accuracy_true_locus']:.4f}")
+    missing = [k for k, v in res["launches"].items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the config 3 path: {missing}")
+    met = res["metrics"]
+    walk_m = walk_profile(index, reads, params)
+    walk_0 = walk_profile(index, reads, bench.bench_params())
+    log(f"config 3: {res['secondaries']} secondaries (JAX package {ref['secondaries']}); "
+        f"secondary admission on the host {met['secondary_seconds']:.3f} s of finalize "
+        f"{met['finalize_seconds']:.3f} s ({met['secondary_checked']} rank-1 records checked, "
+        f"{met['secondary_gated']} dropped by the min_interval gate, "
+        f"{met['secondary_replaced']} on the SDP chain's span); DP launches by (W, mode) "
+        f"{res['dp_launches']}; walk of one batch of {walk_m['reads']} reads of 513-768 bp with "
+        f"moves: {walk_m['launches']} kernel launches, {walk_m['device_ms']:.1f} ms device, "
+        f"{walk_m['unprofiled_ms']:.1f} ms wall without the profiler (without moves: "
+        f"{walk_0['launches']}, {walk_0['device_ms']:.1f} ms, {walk_0['unprofiled_ms']:.1f} ms)")
+
+    extra = ["-bestn", "2", "-m", "5"]
+    lines, metrics, secs = run_cli(cli["path"], genome_fa, "reads_cli_bestn2_m5", extra)
+    cparams = cli_params(cli["path"], genome_fa, extra)
+    if (cparams.best_n, cparams.emit_moves) != (2, True):
+        raise AssertionError(f"-bestn 2 -m 5 parsed as best_n {cparams.best_n}, "
+                             f"emit_moves {cparams.emit_moves}")
+    sub = reads[: cli["reads"]]
+    reset_launch_counts()
+    recs, _ = run_mapping(index, sub, cparams, device="cuda")
+    torch.cuda.synchronize()
+    want = [format_m5(r, by_name[r.qname], index) for r in recs]
+    if lines != want:
+        raise AssertionError(f"CLI -bestn 2 -m 5 output differs from run_mapping: "
+                             f"{sum(a != b for a, b in zip(lines, want))} of {len(want)} lines, "
+                             f"{len(lines)} printed")
+    log(f"CLI -bestn 2 -m 5 on the card: {len(sub)} FASTA reads -> {len(lines)} m5 lines "
+        f"({n_secondaries(recs)} secondaries) in {secs:.1f} s (process included), equal to "
+        f"run_mapping; DP launches in the CLI {metrics['dpLaunches']}, in run_mapping "
+        f"{dp_launch_counts()}")
+    res.update(walk_batch_moves=walk_m, walk_batch_no_moves=walk_0,
+               cli={"reads": len(sub), "lines": len(lines), "seconds": secs,
+                    "dp_launches": metrics["dpLaunches"]})
+    return res
+
+
 def run(out_path: str | None) -> int:
     import torch
 
@@ -976,7 +1104,7 @@ def run(out_path: str | None) -> int:
     log(f"host helpers: {index_path}")
 
     # ---- phase 2: corpora and index ----
-    m4_ref = load_m4_reference()
+    refs = load_references()
     out_dir = os.path.dirname(os.path.abspath(out_path)) if out_path else None
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -1010,12 +1138,15 @@ def run(out_path: str | None) -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     g_rows = check_gathers(di.genome_pad)
     micro_rows = check_micro_dma()
+    micro_launches = micro_dma_path()
+    log(f"K2' on the microbenchmark's path: {micro_launches} launches of K2's kernel "
+        f"(spans {MICRO_DMA_SPANS})")
     del di
 
     # ---- phase 4: the FASTA bench corpus, the CLI, a profile ----
     log("FASTA bench corpus through run_mapping on the card:")
     fasta = map_corpus(index, reads, params, n_timed=2)
-    fasta["records_vs_jax"] = check_records("fasta", fasta, m4_ref, reads_fa, out_dir)
+    fasta["records_vs_jax"] = check_records("fasta", fasta, refs, reads_fa, out_dir)
     cli = check_cli(genome_fa, reads, index)
     if fasta["accuracy_true_locus"] < MIN_ACCURACY:
         raise AssertionError(f"accuracy_true_locus {fasta['accuracy_true_locus']:.4f} < {MIN_ACCURACY}")
@@ -1027,7 +1158,7 @@ def run(out_path: str | None) -> int:
     # ---- phase 5: the CLR FASTQ corpus ----
     log("CLR FASTQ corpus through run_mapping on the card:")
     fastq = map_corpus(index, clr_reads, params, n_timed=2)
-    fastq["records_vs_jax"] = check_records("clr", fastq, m4_ref, reads_fq, out_dir)
+    fastq["records_vs_jax"] = check_records("clr", fastq, refs, reads_fq, out_dir)
     min_acc = JAX_CLR_ACCURACY - CLR_ACCURACY_SLACK
     if fastq["accuracy_true_locus"] < min_acc:
         raise AssertionError(f"CLR accuracy_true_locus {fastq['accuracy_true_locus']:.4f} < "
@@ -1049,10 +1180,13 @@ def run(out_path: str | None) -> int:
 
     # ---- phase 7: guided bands on the CLR FASTQ corpus ----
     guided = check_guided(genome_fa, reads_fq, clr_reads, index, fastq)
-    guided["records_vs_jax"] = check_records("clr_guided", guided, m4_ref, reads_fq, out_dir)
+    guided["records_vs_jax"] = check_records("clr_guided", guided, refs, reads_fq, out_dir)
 
     # ---- phase 8: -scoreMatrix through the CLI ----
     matrix = check_matrix(genome_fa, reads, index, cli)
+
+    # ---- phase 9: config 3, -bestn 2 -m 5 ----
+    config3 = check_config3(genome_fa, reads_fa, reads, index, refs, out_dir, fasta, cli)
 
     # ---- the kernels line ----
     def dp_row(mode):
@@ -1086,6 +1220,17 @@ def run(out_path: str | None) -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"],
         })
+    row = micro_rows[0]
+    src, replaces = KERNEL_META["gather_spans[micro_dma]"]
+    kernels.append({
+        "name": "gather_spans[micro_dma]", "route": "cuda", "source": src, "replaces": replaces,
+        # K2's kernel on the microbenchmark's own path, not the CLR run's
+        "launches": micro_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in micro_rows),
+        "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"],
+    })
     for name, rows, launches in (
             ("banded_dp[guided]", guided_rows,
              sum(n for k, n in guided["dp_launches"].items() if k.endswith("/guided"))),
@@ -1108,9 +1253,11 @@ def run(out_path: str | None) -> int:
                 "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                 "host_helpers": index_path, "dp": dp_rows, "dp_guided": guided_rows,
                 "dp_matrix": matrix_rows, "gathers": g_rows, "micro_dma": micro_rows,
+                "micro_dma_launches": micro_launches,
                 "fasta": fasta, "cli": {k: v for k, v in cli.items() if k != "m4"},
                 "profile": prof, "fastq": fastq, "cli_sam": sam, "guided": guided,
-                "matrix": matrix, "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
+                "matrix": matrix, "config3": config3,
+                "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
                 "jax_guided_accuracy_cpu": JAX_GUIDED_ACCURACY,
                 "seconds": time.time() - t_start,
             }, f, indent=1)

@@ -3,6 +3,8 @@ and the port's mapping on the card against its CPU run. Every test here
 needs an NVIDIA GPU; without one each skips (run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -q``)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -492,3 +494,65 @@ def test_guided_matrix_mapping_on_the_card_equals_cpu(dev):
     by_shape = banded_align.launches_by_shape
     assert by_shape[(32, "guided")] > 0 and by_shape[(128, "guided")] > 0
     assert by_shape[(32, "matrix")] > 0
+
+
+def test_wire_at_best_n_2_with_moves_on_the_card_equals_cpu(dev):
+    """Config 3's settings at a small size: the map_batch wire (two rows a
+    read, the walk's packed move strings) byte for byte, and the -m 5
+    lines with the host's secondary admission, on a genome with repeats."""
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+    from blasr_tpu_torch.io.batching import Read, batch_reads
+    from blasr_tpu_torch.io.seqdb import SeqDB
+    from blasr_tpu_torch.output.verbose import format_m5
+    from blasr_tpu_torch.pipeline.mapper import Mapper
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    rng = np.random.default_rng(17)
+    G = 100_000
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    for src, dst, d in ((5_000, 60_000, 0.03), (20_000, 80_000, 0.1)):
+        seg = genome[src : src + 1500].copy()
+        m = rng.random(1500) < d
+        seg[m] = (seg[m] + 1) % 4
+        genome[dst : dst + 1500] = seg
+    index = build_index_from_arrays(genome, SeqDB(["ref"], np.array([0, G]), ["0" * 32]), k=10)
+    reads = []
+    for i in range(16):
+        s = (5_000, 20_000)[i % 2] + int(rng.integers(0, 700)) if i < 10 else int(
+            rng.integers(0, G - 1000))
+        r = genome[s : s + int(rng.integers(300, 800))].copy()
+        r[::17] = (r[::17] + 1) % 4
+        reads.append(Read(f"r{i}", r, None, i))
+    params = dataclasses.replace(bench.config3_params(), batch_size=8, max_read_len=1024,
+                                 min_match_length=10)
+    cpu_m, gpu_m = Mapper(index, params, device="cpu"), Mapper(index, params, device="cuda")
+    for b in batch_reads(reads, params.batch_size, params.max_read_len):
+        c = cpu_m.map_batch(b.codes, b.lengths)
+        g = gpu_m.map_batch(b.codes, b.lengths)
+        assert (g.i2, g.p) == (c.i2, c.p) and g.i2 == 2 * b.codes.shape[0] and g.p > 0
+        assert torch.equal(g.wire.cpu(), c.wire)
+    by = {r.name: r for r in reads}
+    cpu = run_mapping(index, reads, params, device="cpu")
+    gpu = run_mapping(index, reads, params, device="cuda")
+    lines = [format_m5(r, by[r.qname], index) for r in gpu[0]]
+    assert lines == [format_m5(r, by[r.qname], index) for r in cpu[0]]
+    assert gpu[1] == cpu[1] and len(gpu[0]) > len({r.qname for r in gpu[0]})
+
+
+@pytest.mark.parametrize("width", [1, 7, 577])
+def test_pack_codes_rows_on_the_card_equals_cpu(dev, width):
+    from blasr_tpu_torch.ops.traceback_device import pack_codes_rows
+
+    rng = np.random.default_rng(width)
+    I2, S = 64, 4 * width + 5
+    # boundary codes: a run's code where it starts, 0 inside it, rising
+    codes = np.zeros((I2, S), np.int32)
+    for i in range(I2):
+        at = np.sort(rng.choice(S, size=min(S, 1 + S // 9), replace=False))
+        codes[i, at] = 4 * np.arange(1, len(at) + 1) + rng.integers(1, 4, len(at))
+    nops = rng.integers(0, 4 * width + 3, I2).astype(np.int32)
+    nops[:2] = [0, 4 * width]
+    c, n = torch.from_numpy(codes), torch.from_numpy(nops)
+    assert torch.equal(pack_codes_rows(c.to(dev), n.to(dev), width).cpu(),
+                       pack_codes_rows(c, n, width))

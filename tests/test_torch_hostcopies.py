@@ -2,11 +2,14 @@
 originals, and the C++ host helpers against their plain versions.
 
 The port imports nothing of ``blasr_tpu``; these tests hold each copy it
-keeps (params, sim, io, index, cli flags, native) equal to the module it
-was copied from, on the same inputs."""
+keeps (params, sim, io, index, cli flags, native, the secondary admission
+and the verbose writers) equal to the module it was copied from, on the
+same inputs or, for the two copied whole, line for line."""
 
+import ast
 import dataclasses
 import gzip
+import os
 
 import numpy as np
 import pytest
@@ -205,3 +208,22 @@ def test_native_helpers_equal_their_plain_versions():
     for nops in (0, 1, 5, 160):
         np.testing.assert_array_equal(native.unpack_moves(packed, nops),
                                       native.unpack_moves_plain(packed, nops))
+
+
+@pytest.mark.parametrize("module", ["pipeline/secondary_refine.py", "output/verbose.py"])
+def test_whole_module_copies_equal_jax(module):
+    """The copies made whole: the same code as the original once the
+    port's package name reads as the JAX package's; only the module
+    docstrings differ."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def body(pkg):
+        with open(os.path.join(repo, pkg, module)) as f:
+            tree = ast.parse(f.read())
+        assert isinstance(tree.body[0], ast.Expr)            # the docstring
+        tree.body = tree.body[1:]
+        return ast.unparse(tree).replace("blasr_tpu_torch.", "blasr_tpu.")
+
+    port = body("blasr_tpu_torch")
+    assert port == body("blasr_tpu")
+    assert "def " in port

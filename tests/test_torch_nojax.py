@@ -1,8 +1,9 @@
 """The port stands alone: subprocesses with ``jax`` and the whole
 ``blasr_tpu`` package blocked import blasr_tpu_torch and map FASTA and
 FASTQ reads end to end on the CPU to -m 4 lines, through the library and
-through the CLI (also with ``-useGuidedAlign -scoreMatrix``), and no file
-of the port imports either package."""
+through the CLI (also with ``-useGuidedAlign -scoreMatrix``, and to -m 5
+lines with ``-bestn 2``), and no file of the port imports either
+package."""
 
 import io
 import json
@@ -129,6 +130,7 @@ def cli_outputs(tmp_path_factory):
         for n, c, q in reads))
     runs = [f"{tmp_path / f'r.{fmt}'},{tmp_path / f'{fmt}.m4'}" for fmt in CLI_FORMATS]
     runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'guided_matrix.m4'},{GUIDED_MATRIX}")
+    runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'bestn2_m5.m4'},-bestn 2 -m 5")
     proc = subprocess.run(
         [sys.executable, "-c", CLI_SCRIPT, str(tmp_path / "g.fa"),
          "-m", "4", "-header", "-device", "cpu", "-minMatch", "10",
@@ -137,7 +139,7 @@ def cli_outputs(tmp_path_factory):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     return {run: (tmp_path / f"{run}.m4").read_text().splitlines()
-            for run in (*CLI_FORMATS, "guided_matrix")}
+            for run in (*CLI_FORMATS, "guided_matrix", "bestn2_m5")}
 
 
 def test_cli_writes_m4_with_jax_blocked(cli_outputs):
@@ -157,6 +159,25 @@ def test_cli_maps_guided_with_a_matrix_with_blasr_tpu_blocked(cli_outputs):
     assert cli_outputs["guided_matrix"] != cli_outputs["fasta"]
 
 
+def test_cli_writes_bestn2_m5_with_jax_blocked(cli_outputs):
+    """-bestn 2 -m 5: each read's best alignment as the -m 4 run reports it,
+    with its alignment strings (19 fields, no header line)."""
+    lines = cli_outputs["bestn2_m5"]
+    assert len(lines) >= 6
+    best = {}
+    for ln in lines:
+        f = ln.split()
+        assert len(f) == 19 and f[4] == "+" and f[9] in "+-"
+        assert len(f[16]) == len(f[17]) == len(f[18]) > 400
+        best.setdefault(f[0], f)                 # a read's first line is its best
+    assert set(best) == {f"q{i}" for i in range(6)}
+    for m4 in cli_outputs["fasta"][1:]:
+        g = m4.split()
+        f = best[g[0].split("/")[0]]
+        # score, query span and strand as -m 4 prints them
+        assert (f[10], f[2], f[3], f[9]) == (g[2], g[5], g[6], "+-"[int(g[8])])
+
+
 def _check_cli_lines(lines):
     assert lines[0].startswith("qname tname score")
     assert len(lines) == 7
@@ -168,7 +189,8 @@ def test_cli_names_unsupported_options():
 
     for argv, name in ((["-sam"], "-sam"), (["-bwt"], "-bwt"),
                        (["-useSensitiveSearch"], "-useSensitiveSearch"),
-                       (["-m", "5"], "-m 5"), (["-samqv", "InsertionQV"], "-samqv"),
+                       (["-placeRepeatsRandomly"], "-placeRepeatsRandomly"),
+                       (["-samqv", "InsertionQV"], "-samqv"),
                        (["-clipping", "hard"], "-clipping")):
         with pytest.raises(SystemExit, match=name):
             main(["r.fa", "g.fa", *argv])

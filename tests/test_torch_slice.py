@@ -3,8 +3,8 @@
 A 200 kb random two-contig genome, a k=10 suffix-array index with the
 direct 4^k tables, 24 noisy reads of 400-1000 bp (every sixth with an
 insertion burst that the narrow band clips, so band escalation runs). The
-port's map_batch wire bytes and its run_mapping -m 4 lines must equal the
-JAX package's exactly."""
+port's map_batch wire bytes (best_n 1 and 2) and its run_mapping -m 4
+lines must equal the JAX package's exactly."""
 
 import dataclasses
 
@@ -64,10 +64,15 @@ def _jax_index_numpy(index, params):
     return jdi, tuple(np.asarray(a) for a in jdi.arrays)
 
 
-@pytest.mark.parametrize("W,emit_moves", [(32, False), (64, True), (32, True)])
-def test_map_batch_wire_bytes_equal_jax(corpus, W, emit_moves):
+@pytest.mark.parametrize("W,emit_moves,best_n", [
+    pytest.param(32, False, 1, id="32-False"), pytest.param(64, True, 1, id="64-True"),
+    pytest.param(32, True, 1, id="32-True"),
+    # two rows a read, the second one's moves for the host's secondary admission
+    pytest.param(32, True, 2, id="32-bestn2"), pytest.param(64, True, 2, id="64-bestn2"),
+])
+def test_map_batch_wire_bytes_equal_jax(corpus, W, emit_moves, best_n):
     index, reads = corpus
-    params = dataclasses.replace(BASE, narrow_band=W, emit_moves=emit_moves)
+    params = dataclasses.replace(BASE, narrow_band=W, emit_moves=emit_moves, best_n=best_n)
     jm = jmap.Mapper(index, params)
     tm = tmap.Mapper(index, params, device="cpu")
     n = 0
@@ -75,6 +80,7 @@ def test_map_batch_wire_bytes_equal_jax(corpus, W, emit_moves):
         jr = jm.map_batch(b.codes, b.lengths)
         tr = tm.map_batch(b.codes, b.lengths)
         assert (jr.i2, jr.p, jr.b, jr.rcols) == (tr.i2, tr.p, tr.b, tr.rcols)
+        assert tr.i2 == best_n * b.codes.shape[0] and (tr.p > 0) == emit_moves
         np.testing.assert_array_equal(np.asarray(jr.wire), tr.wire.numpy())
         n += 1
     assert n >= 2
@@ -134,7 +140,8 @@ def test_make_device_index_equals_jax_and_maps_the_same(corpus):
 
 def test_unported_options_raise(corpus):
     index, reads = corpus
-    for kw in (dict(best_n=2), dict(sensitive_retry=True), dict(adaptive_cd=True)):
+    for kw in (dict(place_repeats_randomly=True), dict(sensitive_retry=True),
+               dict(adaptive_cd=True)):
         with pytest.raises(NotImplementedError):
             run_mapping(index, reads[:2], dataclasses.replace(BASE, **kw), device="cpu")
     # guided bands are ported: a batch of empty reads maps to no alignment

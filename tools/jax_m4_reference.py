@@ -30,6 +30,7 @@ line per corpus.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -43,14 +44,12 @@ CORPORA = ("fasta", "clr", "clr_guided")
 
 
 def bench_params():
-    """The operating point of blasr_tpu_torch.bench.bench_params."""
+    """blasr_tpu_torch.bench.bench_params as the JAX package's
+    MappingParams: the port's one definition of the operating point."""
     from blasr_tpu.params import MappingParams
+    from blasr_tpu_torch.bench import bench_params as port_params
 
-    return MappingParams(
-        batch_size=256, max_read_len=3328, n_candidates=4, n_dp_candidates=2,
-        anchor_stride=4, max_anchors_per_read=128, narrow_band=32,
-        narrow_band_max=3328, best_n=1, emit_moves=False, direct_lut=True,
-    )
+    return MappingParams(**dataclasses.asdict(port_params()))
 
 
 def guided_params(reads_fq: str, genome_fa: str):
