@@ -1,7 +1,10 @@
-"""Command line of the port: mapping on one device to -m 0, 1, 2, 3, 4 or 5.
+"""Command line of the port: mapping on one device to -m 0, 1, 2, 3, 4 or 5,
+SAM or BAM.
 
-    python -m blasr_tpu_torch.cli.blasr reads.{fa,fastq,sam} genome.fa -m 4 \\
+    python -m blasr_tpu_torch.cli.blasr reads.{fa,fastq,sam,bam} genome.fa -m 4 \\
         [-out FILE] [-header] [-device cuda|cpu] [mapping options]
+    python -m blasr_tpu_torch.cli.blasr reads.fastq genome.fa -sam \\
+        [-clipping soft|hard|none|subread] [-samqv NAME ...] [-out FILE.{sam,bam}]
 
 The flags are the JAX package's (``cli/args.py`` holds the port's copy of
 its parser and ``params_from_args``). Only the options of the ported slice
@@ -15,12 +18,20 @@ per read, each secondary admitted on the host as the reference does.
 ``-m 0``, ``1``, ``2``, ``3`` and ``5`` print the verbose formats (0, 2 and
 5 with alignment strings, 3 as a VULGAR string, all from the walk's move
 strings).
+``-sam`` writes SAM (BAM when ``-out`` ends in ``.bam``), with the reads
+file's basename as the movie name and the CIGAR's matches split into = and
+X; ``-clipping`` chooses the clip of the unaligned ends, ``-samqv`` the
+read's QV tracks echoed as tags. ``-unaligned FILE`` writes the unmapped
+reads (names only with ``-noPrintUnalignedSeqs``), and ``-titleTable
+FILE`` writes the contig names and prints each contig by its index.
 ``-device`` defaults to ``cuda`` and never falls back to the CPU.
 """
 
 from __future__ import annotations
 
+import io
 import json
+import os
 import sys
 import time
 
@@ -37,13 +48,15 @@ SUPPORTED = {
     "indel", "insertion", "deletion", "match", "mismatch",
     "affineOpen", "affineExtend", "pvaltype", "indelRate",
     "ignoreQualities", "minAvgQual", "useGuidedAlign", "scoreMatrix",
+    "sam", "clipping", "samqv", "unaligned", "noPrintUnalignedSeqs", "titleTable",
 }
 
 
 def build_parser():
     p = build_arg_parser()
     p.prog = "blasr_tpu_torch"
-    p.description = "BLASR-capability long-read aligner, PyTorch/CUDA port (-m 0-5)"
+    p.description = ("BLASR-capability long-read aligner, PyTorch/CUDA port "
+                     "(-m 0-5, -sam, BAM)")
     p.add_argument("-device", default="cuda", help="torch device to map on (cuda or cpu)")
     return p
 
@@ -61,8 +74,6 @@ def unsupported_options(parser, args) -> list[str]:
             continue
         if getattr(args, dest, defaults[dest]) != defaults[dest]:
             bad.append(action.option_strings[0])
-    if args.sam:
-        bad.append("-sam")
     if args.pvaltype not in (0, 1):
         bad.append(f"-pvaltype {args.pvaltype}")
     return bad
@@ -75,15 +86,18 @@ def main(argv=None) -> int:
     if bad:
         raise SystemExit(
             "blasr_tpu_torch: not supported by the port yet: " + ", ".join(bad)
-            + " (the port maps to -m 0-5 on one device; see ROADMAP.md)"
+            + " (the port maps to -m 0-5, SAM and BAM on one device; see ROADMAP.md)"
         )
     params = params_from_args(args)
     params.validate()
 
+    from blasr_tpu_torch.core.encode import codes_to_seq
     from blasr_tpu_torch.index.artifacts import load_index
+    from blasr_tpu_torch.io.bam import write_bam_from_sam_lines
     from blasr_tpu_torch.io.batching import read_records
     from blasr_tpu_torch.ops import dp_launch_counts, launch_counts
     from blasr_tpu_torch.output.m4 import write_m4
+    from blasr_tpu_torch.output.sam_writer import write_sam
     from blasr_tpu_torch.output.verbose import write_verbose
     from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
 
@@ -91,19 +105,55 @@ def main(argv=None) -> int:
     index = load_index(args.genome, k=params.min_match_length)
     t_index = time.time() - t_start
     reads = read_records(args.reads)
+    if args.titleTable:
+        with open(args.titleTable, "w") as f:
+            for name in index.seqdb.names:
+                f.write(name + "\n")
+        # ResetTableToIntegers (Blasr.cpp:4495, TitleTable.h role): output
+        # refers to contigs by their table index; the table file maps back
+        index.seqdb.names = [str(i) for i in range(len(index.seqdb.names))]
     met = MappingMetrics()
     t0 = time.time()
     records, unmapped = run_mapping(index, reads, params, device=args.device, metrics=met)
     t_map = time.time() - t0
-    out = sys.stdout if args.out == "-" else open(args.out, "w")
-    try:
-        if args.m == 4:
-            write_m4(records, out, header=args.header)
-        else:
-            write_verbose(records, reads, index, out, fmt=args.m, header=args.header)
-    finally:
-        if out is not sys.stdout:
-            out.close()
+
+    def sam(out):
+        write_sam(records, reads, index.seqdb, out, clipping=args.clipping,
+                  program_line=" ".join(sys.argv), unmapped=unmapped,
+                  movie_name=os.path.basename(args.reads), genome=index.genome,
+                  samqv=params.samqv)
+
+    if args.sam and args.out.endswith(".bam"):
+        buf = io.StringIO()
+        sam(buf)
+        lines = buf.getvalue().split("\n")
+        write_bam_from_sam_lines([ln for ln in lines if ln.startswith("@")],
+                                 [ln for ln in lines if ln and not ln.startswith("@")],
+                                 args.out)
+    else:
+        out = sys.stdout if args.out == "-" else open(args.out, "w")
+        try:
+            if args.sam:
+                sam(out)
+            elif args.m == 4:
+                write_m4(records, out, header=args.header)
+            else:
+                write_verbose(records, reads, index, out, fmt=args.m, header=args.header)
+        finally:
+            if out is not sys.stdout:
+                out.close()
+    if args.unaligned:
+        # every unmapped OCCURRENCE is written (duplicate read names are
+        # legal in FASTA; a name->read dict would collapse them)
+        unmapped_names = set(unmapped)
+        with open(args.unaligned, "w") as f:
+            for rd in reads:
+                if rd.name not in unmapped_names:
+                    continue
+                if args.noPrintUnalignedSeqs:
+                    f.write(rd.name + "\n")
+                else:
+                    f.write(f">{rd.name}\n{codes_to_seq(rd.codes)}\n")
     if args.metrics:
         with open(args.metrics, "w") as f:
             json.dump({

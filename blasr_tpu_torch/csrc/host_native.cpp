@@ -1,13 +1,16 @@
 // Host helpers of the port in C++: the suffix-array builder (SA-IS), the
-// FASTA byte-stream encoder and the move-string unpacker. The port's copy of
-// the three functions of blasr_tpu/native/src/blasr_native.cpp that it
-// calls; each has a plain numpy version in blasr_tpu_torch/native.py that
-// the tests hold it equal to.
+// FASTA byte-stream encoder, the move-string unpacker and the SAM record
+// fields (the =/X CIGAR of an op array, and CIGAR, SEQ and QUAL in one pass
+// over a packed move string). The port's copy of the functions of
+// blasr_tpu/native/src/blasr_native.cpp that it calls; each has a plain
+// numpy version in blasr_tpu_torch/native.py that the tests hold it equal
+// to.
 //
 // Role of the reference's native infrastructure: suffix-array construction
 // (common/algorithms/sorting/qsufsort.h, Karkkainen.h — here replaced by a
-// from-scratch SA-IS, the linear-time induced-sorting algorithm) and
-// FASTA byte-stream encoding (common/FASTAReader.h buffered parse).
+// from-scratch SA-IS, the linear-time induced-sorting algorithm), FASTA
+// byte-stream encoding (common/FASTAReader.h buffered parse) and SAM CIGAR
+// emission (printers/SAMPrinter.h:120-260 CreateCIGAR).
 //
 // Plain C ABI, loaded with ctypes; built with g++ by
 // blasr_tpu_torch/ops/_build.py. Index types are templated so genomes of
@@ -190,6 +193,177 @@ void bn_unpack_moves(const uint8_t* packed, int64_t nops, uint8_t* ops_out) {
     int op = (packed[j >> 2] >> (2 * (j & 3))) & 3;
     ops_out[nops - 1 - j] = static_cast<uint8_t>(op);
   }
+}
+
+// ---- SAM CIGAR with M split into =/X (SAMPrinter.h AddUngappedOperations
+// role): one pass over the forward op array, comparing aligned bases, with
+// optional clip runs at both ends. ops values 1=M 2=I 3=D; q/t are code
+// arrays in aligned orientation; qpos/tpos are the path-local span starts.
+// Writes the ASCII CIGAR into out (capacity out_cap) and returns its
+// length, or -1 if out_cap would overflow.
+static inline char* emit_run(char* p, char* end, int64_t len, char op) {
+  char tmp[24];
+  int k = 0;
+  if (len <= 0) return p;
+  while (len > 0) { tmp[k++] = static_cast<char>('0' + len % 10); len /= 10; }
+  if (p + k + 1 > end) return nullptr;
+  while (k > 0) *p++ = tmp[--k];
+  *p++ = op;
+  return p;
+}
+
+int64_t bn_xeq_cigar(const uint8_t* ops, int64_t nops, const uint8_t* q,
+                     const uint8_t* t, int64_t qpos, int64_t tpos,
+                     int64_t pre_clip, int64_t post_clip, char clip_op,
+                     char* out, int64_t out_cap) {
+  char* p = out;
+  char* end = out + out_cap;
+  if (pre_clip > 0) {
+    p = emit_run(p, end, pre_clip, clip_op);
+    if (!p) return -1;
+  }
+  char cur = 0;
+  int64_t run = 0;
+  for (int64_t i = 0; i < nops; i++) {
+    uint8_t op = ops[i];
+    char sym;
+    if (op == 2) {
+      sym = 'I';
+      qpos++;
+    } else if (op == 3) {
+      sym = 'D';
+      tpos++;
+    } else {
+      sym = (q[qpos] == t[tpos]) ? '=' : 'X';
+      qpos++;
+      tpos++;
+    }
+    if (sym == cur) {
+      run++;
+    } else {
+      if (run) {
+        p = emit_run(p, end, run, cur);
+        if (!p) return -1;
+      }
+      cur = sym;
+      run = 1;
+    }
+  }
+  if (run) {
+    p = emit_run(p, end, run, cur);
+    if (!p) return -1;
+  }
+  if (post_clip > 0) {
+    p = emit_run(p, end, post_clip, clip_op);
+    if (!p) return -1;
+  }
+  return p - out;
+}
+
+// ---- full SAM field assembly for one record (SAMPrinter.h:120-260 CIGAR
+// emission + :59-102 clipping modes + SEQ/QUAL orientation,
+// Blasr.cpp:1316-1323 RC convention): consumes the 2-bit packed move
+// string (END->START order, as the device walk emits it) directly — no
+// intermediate ops array — and writes the three expensive record fields
+// into one buffer as cigar '\t' seq '\t' qual. fwd_codes/qual are the
+// read's FORWARD-orientation arrays; strand==1 reverse-complements
+// (reverses) them on the fly. clip_mode: 0 none, 1 soft/subread, 2 hard.
+// Returns total bytes or -1 on overflow; lens_out[0..2] get field lengths.
+int64_t bn_sam_fields(const uint8_t* packed, int64_t nops, int64_t q_start,
+                      int64_t t_start, const uint8_t* fwd_codes,
+                      int64_t read_len, const uint8_t* qual,
+                      int64_t has_qual, const uint8_t* t_aln, int64_t t_len,
+                      int64_t strand, int64_t clip_mode, char clip_op,
+                      char* out, int64_t out_cap, int64_t* lens_out) {
+  static const char b2a[6] = {'A', 'C', 'G', 'T', 'N', 'N'};
+  char* p = out;
+  char* end = out + out_cap;
+  // aligned-orientation base at query position i
+  auto qbase = [&](int64_t i) -> uint8_t {
+    if (strand) {
+      uint8_t c = fwd_codes[read_len - 1 - i];
+      return c < 4 ? static_cast<uint8_t>(3 - c) : c;
+    }
+    return fwd_codes[i];
+  };
+  // count query-consuming ops for q_end (packed order is END->START, op
+  // j-from-end at bit position 2*(j&3) of byte j>>2; 1=M 2=I 3=D)
+  int64_t q_cons = 0;
+  for (int64_t j = 0; j < nops; j++) {
+    int op = (packed[j >> 2] >> (2 * (j & 3))) & 3;
+    if (op != 3) q_cons++;
+  }
+  const int64_t q_end = q_start + q_cons;
+  const int64_t pre = q_start, post = read_len - q_end;
+  // ---- CIGAR ----
+  if (clip_mode != 0 && pre > 0) {
+    p = emit_run(p, end, pre, clip_op);
+    if (!p) return -1;
+  }
+  {
+    int64_t qpos = q_start, tpos = t_start;
+    char cur = 0;
+    int64_t run = 0;
+    for (int64_t j = nops - 1; j >= 0; j--) {  // forward op order
+      int op = (packed[j >> 2] >> (2 * (j & 3))) & 3;
+      char sym;
+      if (op == 2) {
+        sym = 'I';
+        qpos++;
+      } else if (op == 3) {
+        sym = 'D';
+        tpos++;
+      } else {
+        sym = (tpos < t_len && qbase(qpos) == t_aln[tpos]) ? '=' : 'X';
+        qpos++;
+        tpos++;
+      }
+      if (sym == cur) {
+        run++;
+      } else {
+        if (run) {
+          p = emit_run(p, end, run, cur);
+          if (!p) return -1;
+        }
+        cur = sym;
+        run = 1;
+      }
+    }
+    if (run) {
+      p = emit_run(p, end, run, cur);
+      if (!p) return -1;
+    }
+  }
+  if (clip_mode != 0 && post > 0) {
+    p = emit_run(p, end, post, clip_op);
+    if (!p) return -1;
+  }
+  lens_out[0] = p - out;
+  if (p >= end) return -1;
+  *p++ = '\t';
+  // ---- SEQ (aligned orientation; hard clip slices the aligned span) ----
+  const int64_t s_lo = clip_mode == 2 ? q_start : 0;
+  const int64_t s_hi = clip_mode == 2 ? q_end : read_len;
+  if (p + (s_hi - s_lo) > end) return -1;
+  char* seq0 = p;
+  for (int64_t i = s_lo; i < s_hi; i++) *p++ = b2a[qbase(i) > 5 ? 5 : qbase(i)];
+  lens_out[1] = p - seq0;
+  if (p >= end) return -1;
+  *p++ = '\t';
+  // ---- QUAL (+33, reversed for strand 1, same clip slice) ----
+  char* qual0 = p;
+  if (!has_qual) {
+    if (p >= end) return -1;
+    *p++ = '*';
+  } else {
+    if (p + (s_hi - s_lo) > end) return -1;
+    for (int64_t i = s_lo; i < s_hi; i++) {
+      uint8_t v = strand ? qual[read_len - 1 - i] : qual[i];
+      *p++ = static_cast<char>(v + 33);
+    }
+  }
+  lens_out[2] = p - qual0;
+  return p - out;
 }
 
 }  // extern "C"

@@ -3,8 +3,8 @@
 The port's copy of the input half of ``blasr_tpu/io/sam.py`` (:1-183).
 Role of reference ``common/algorithms/alignment/readers/sam/SAMReader.h``
 (header + alignment-line parsing) and ``SAMToSMRTSequence`` (the read in
-its original orientation), as a flat parse. SAM text and ``.sam.gz`` are
-read; BAM input is not ported (ROADMAP queue 1 item 19).
+its original orientation), as a flat parse. SAM text, ``.sam.gz`` and BAM
+(through ``io/bam.read_bam``) are read.
 """
 
 from __future__ import annotations
@@ -52,10 +52,10 @@ def _fields_to_record(fields: list[str]) -> SAMRecord:
 
 def read_sam(path: str) -> SAMFile:
     if path.endswith(".bam"):
-        raise NotImplementedError(
-            f"{path}: BAM input is not ported to blasr_tpu_torch yet "
-            "(ROADMAP queue 1 item 19); convert it to SAM"
-        )
+        from blasr_tpu_torch.io.bam import read_bam
+
+        header, recs = read_bam(path)
+        return SAMFile(header, [_fields_to_record(f) for f in recs])
     header: list[str] = []
     records: list[SAMRecord] = []
     opener = (

@@ -26,6 +26,10 @@ class SeqDB:
     md5s: list[str]
 
     @property
+    def num_contigs(self) -> int:
+        return len(self.names)
+
+    @property
     def total_length(self) -> int:
         return int(self.starts[-1])
 
@@ -35,6 +39,13 @@ class SeqDB:
     def contig_of(self, pos: np.ndarray) -> np.ndarray:
         """Global position(s) -> contig index (vectorized)."""
         return np.searchsorted(self.starts, np.asarray(pos), side="right") - 1
+
+    def sam_sq_lines(self) -> list[str]:
+        out = []
+        lens = self.lengths()
+        for i, name in enumerate(self.names):
+            out.append(f"@SQ\tSN:{name}\tLN:{int(lens[i])}\tM5:{self.md5s[i]}")
+        return out
 
 
 def load_genome(path: str) -> tuple[np.ndarray, SeqDB]:

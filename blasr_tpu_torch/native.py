@@ -1,16 +1,18 @@
 """The C++ host helpers of the port and their plain numpy versions.
 
-The port's copy of the three entry points of ``blasr_tpu/native`` that it
-calls: the SA-IS suffix-array builder, the FASTA body encoder and the
-move-string unpacker (``csrc/host_native.cpp``, built by ``g++`` through
-``ops/_build.py`` at first use). Each function runs the C++ code when the
-library is built and its plain version, which gives the same result, when
-no ``g++`` is present.
+The port's copy of the entry points of ``blasr_tpu/native`` that it calls:
+the SA-IS suffix-array builder, the FASTA body encoder, the move-string
+unpacker and the SAM record fields, ``xeq_cigar`` and ``sam_fields``
+(``csrc/host_native.cpp``, built by ``g++`` through ``ops/_build.py`` at
+first use). Each function runs the C++ code when the library is built and
+its plain version, which gives the same result, when no ``g++`` is
+present; each returns its result, never None.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 
@@ -74,3 +76,136 @@ def unpack_moves(packed_row: np.ndarray, nops: int) -> np.ndarray:
     out = np.empty(max(nops, 1), np.uint8)
     lib.bn_unpack_moves(_ptr(packed_row), nops, _ptr(out))
     return out[:nops]
+
+
+_EMPTY_U8 = np.zeros(1, np.uint8)
+_FIELD_BUFS = threading.local()
+_B2A = np.frombuffer(b"ACGTNN", np.uint8)
+
+
+def _field_buf(cap: int):
+    """Reusable output buffer (per thread): a new string buffer per record
+    costs more than the record's fields."""
+    buf = getattr(_FIELD_BUFS, "buf", None)
+    if buf is None or len(buf) < cap:
+        buf = ctypes.create_string_buffer(max(cap, 1 << 15))
+        _FIELD_BUFS.buf = buf
+    return buf
+
+
+def _cigar(ops, q_aln: np.ndarray, t_aln: np.ndarray, q_start: int, t_start: int,
+           pre_clip: int, post_clip: int, clip_op: str) -> str:
+    """The CIGAR string of ``ops``: I (2) and D (3) as such, every other op
+    = where ``q_aln[qpos]`` equals ``t_aln[tpos]`` inside the window and X
+    elsewhere, run-length encoded between the clips that are positive."""
+    ops = np.asarray(ops, np.uint8)
+    qstep = (ops != 3).astype(np.int64)
+    tstep = (ops != 2).astype(np.int64)
+    qpos = q_start + np.cumsum(qstep) - qstep
+    tpos = t_start + np.cumsum(tstep) - tstep
+    sym = np.where(ops == 2, 0, np.where(ops == 3, 1, 3))
+    inside = (ops != 2) & (ops != 3) & (tpos < len(t_aln))
+    eq = np.zeros(ops.size, bool)
+    eq[inside] = q_aln[qpos[inside]] == t_aln[tpos[inside]]
+    sym[eq] = 2
+    ends = np.flatnonzero(np.diff(sym)) + 1
+    bounds = np.concatenate(([0], ends, [sym.size])) if sym.size else np.zeros(1, np.int64)
+    runs = "".join(f"{int(bounds[i + 1] - bounds[i])}{'ID=X'[int(sym[bounds[i]])]}"
+                   for i in range(len(bounds) - 1))
+    pre = f"{pre_clip}{clip_op}" if pre_clip > 0 else ""
+    post = f"{post_clip}{clip_op}" if post_clip > 0 else ""
+    return pre + runs + post
+
+
+def xeq_cigar_plain(ops, q_aln, t_aln, q_start, t_start, pre_clip, post_clip, clip_op):
+    return _cigar(ops, np.asarray(q_aln, np.uint8), np.asarray(t_aln, np.uint8), q_start,
+                  t_start, pre_clip, post_clip, clip_op)
+
+
+def xeq_cigar(
+    ops: np.ndarray, q_aln: np.ndarray, t_aln: np.ndarray,
+    q_start: int, t_start: int, pre_clip: int, post_clip: int, clip_op: str,
+) -> str:
+    """Full SAM CIGAR string of an op array (1 M, 2 I, 3 D; START->END)
+    with M split into = and X by comparing ``q_aln`` (aligned orientation)
+    with ``t_aln`` from the path-local span starts, and ``pre_clip`` /
+    ``post_clip`` runs of ``clip_op`` at the ends when positive."""
+    lib = _build.load_host_library()
+    if lib is None:
+        return xeq_cigar_plain(ops, q_aln, t_aln, q_start, t_start, pre_clip, post_clip,
+                               clip_op)
+    ops = np.ascontiguousarray(ops, dtype=np.uint8)
+    q_aln = np.ascontiguousarray(q_aln, dtype=np.uint8)
+    t_aln = np.ascontiguousarray(t_aln, dtype=np.uint8)
+    # worst case: every op alternates -> len(str(n)) + 1 per op, plus clips
+    cap = 12 * (len(ops) + 2) + 48
+    buf = ctypes.create_string_buffer(cap)
+    n = lib.bn_xeq_cigar(
+        _ptr(ops), len(ops), _ptr(q_aln), _ptr(t_aln), q_start, t_start,
+        pre_clip, post_clip, clip_op.encode()[:1] or b"S", ctypes.addressof(buf), cap,
+    )
+    if n < 0:
+        raise RuntimeError(f"bn_xeq_cigar overflowed its {cap}-byte buffer")
+    return buf.raw[:n].decode()
+
+
+def sam_fields_plain(packed_moves, nops, q_start, t_start, fwd_codes, qual, t_aln,
+                     strand, clip_mode, clip_op):
+    fwd = np.asarray(fwd_codes, np.uint8)
+    n = len(fwd)
+    aligned = np.where(fwd < 4, 3 - fwd, fwd)[::-1] if strand else fwd
+    ops = unpack_moves_plain(np.asarray(packed_moves, np.uint8), nops)
+    q_end = q_start + int((ops != 3).sum())
+    clipped = clip_mode != 0
+    cigar = _cigar(ops, aligned, np.asarray(t_aln, np.uint8), q_start, t_start,
+                   q_start if clipped else 0, n - q_end if clipped else 0, clip_op)
+    lo, hi = (q_start, q_end) if clip_mode == 2 else (0, n)
+    seq = _B2A[np.minimum(aligned[lo:hi], 5)].tobytes().decode()
+    if qual is None:
+        return cigar, seq, "*"
+    q = np.asarray(qual, np.uint8)
+    q = q[::-1] if strand else q
+    return cigar, seq, (q[lo:hi] + np.uint8(33)).tobytes().decode()
+
+
+def sam_fields(
+    packed_moves: np.ndarray, nops: int, q_start: int, t_start: int,
+    fwd_codes: np.ndarray, qual: np.ndarray | None,
+    t_aln: np.ndarray, strand: int, clip_mode: int, clip_op: str,
+) -> tuple[str, str, str]:
+    """(CIGAR, SEQ, QUAL) of a SAM record in one pass over the walk's packed
+    move string (END->START): the read's forward codes and quality
+    reverse-complemented and reversed on strand 1, matches split into = and
+    X against ``t_aln``, clipped by ``clip_mode`` (0 none, 1 soft or
+    subread, 2 hard) with ``clip_op`` runs."""
+    lib = _build.load_host_library()
+    if lib is None:
+        return sam_fields_plain(packed_moves, nops, q_start, t_start, fwd_codes, qual, t_aln,
+                                strand, clip_mode, clip_op)
+    packed_moves = np.ascontiguousarray(packed_moves, dtype=np.uint8)
+    fwd_codes = np.ascontiguousarray(fwd_codes, dtype=np.uint8)
+    has_q = 0
+    qarr = _EMPTY_U8
+    if qual is not None:
+        qarr = np.ascontiguousarray(qual, dtype=np.uint8)
+        has_q = 1
+    t_aln = np.ascontiguousarray(t_aln, dtype=np.uint8)
+    n = len(fwd_codes)
+    cap = 12 * (nops + 2) + 2 * n + 64
+    buf = _field_buf(cap)
+    lens = np.zeros(3, np.int64)
+    total = lib.bn_sam_fields(
+        _ptr(packed_moves), nops, q_start, t_start, _ptr(fwd_codes), n, _ptr(qarr), has_q,
+        _ptr(t_aln), len(t_aln), strand, clip_mode, clip_op.encode()[:1] or b"S",
+        ctypes.addressof(buf), cap, _ptr(lens),
+    )
+    if total < 0:
+        raise RuntimeError(f"bn_sam_fields overflowed its {cap}-byte buffer")
+    # slice the buffer itself (buf.raw would copy the whole reusable buffer)
+    c0 = int(lens[0])
+    s0 = c0 + 1 + int(lens[1])
+    return (
+        buf[:c0].decode(),
+        buf[c0 + 1 : s0].decode(),
+        buf[s0 + 1 : s0 + 1 + int(lens[2])].decode(),
+    )

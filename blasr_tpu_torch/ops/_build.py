@@ -61,6 +61,13 @@ _SIGNATURES = {
     "bn_sais_i64": ([_P, ctypes.c_int64, _P], ctypes.c_int),
     "bn_encode_strip": ([ctypes.c_char_p, ctypes.c_int64, _P], ctypes.c_int64),
     "bn_unpack_moves": ([_P, ctypes.c_int64, _P], None),
+    # ops nops q t qpos tpos pre_clip post_clip clip_op out out_cap
+    "bn_xeq_cigar": ([_P, _LL, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_char, _P, _LL],
+                     ctypes.c_int64),
+    # packed nops q_start t_start codes read_len qual has_qual t_aln t_len
+    # strand clip_mode clip_op out out_cap lens_out
+    "bn_sam_fields": ([_P, _LL, _LL, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _LL,
+                       ctypes.c_char, _P, _LL, _P], ctypes.c_int64),
 }
 
 _lock = threading.Lock()

@@ -41,7 +41,11 @@ Phases, each of which must pass:
      DP kernel launched at W = 32 and at W >= 128 (band escalation);
   6. 256 CLR reads written as SAM with iq/sq tracks through the user's CLI:
      the same -m 4 lines as run_mapping in this process, and the
-     dual-stream DP kernel launched in both;
+     dual-stream DP kernel launched in both; then the CLI's -sam -clipping
+     hard -samqv InsertionQV SubstitutionQV -unaligned prints write_sam's
+     lines for run_mapping's records (H clips, each read's iq/sq tracks, the unmapped
+     reads in the -unaligned file), and the same flags to a .bam read back
+     equal the text;
   7. the CLR FASTQ corpus with -useGuidedAlign on the CLI's parameters
      (one timed run, the per-stage clock): accuracy within 0.01 of the JAX
      package's CPU figure for the same flags, the records read by read,
@@ -57,9 +61,20 @@ Phases, each of which must pass:
      every -m 5 line equal to the JAX package's read by read
      (tools/jax_m5_reference.json), accuracy equal to phase 4's, the
      host seconds of the secondary admission, the walk's launches and
-     device ms on one batch with and without moves; then the CLI with
-     -bestn 2 -m 5 on phase 4's 256 reads prints run_mapping's lines.
-The line before the last is a JSON object with each kernel's launches,
+     device ms on one batch with and without moves; the same records as SAM
+     equal to the JAX package's read by read (tools/jax_sam_reference.json
+     config3_sam, secondaries with FLAG 256); then the CLI with -bestn 2
+     -m 5 on phase 4's 256 reads prints run_mapping's lines;
+ 10. config 2, -sam -clipping soft, on the CLR FASTQ corpus
+     (bench.bench_params(emit_moves=True)): warm-up, two timed runs of
+     run_mapping plus write_sam into a StringIO, the per-stage clock; every
+     timed run's SAM lines equal to the JAX package's read by read
+     (tools/jax_sam_reference.json config2, the header too; with --out
+     the card's text lands in sam_config2.sam), accuracy equal to phase
+     5's, the single-quality DP at W = 32 and W = 256, and the lines read
+     back through read_sam from SAM text and from BAM.
+The line before the last is a JSON object with each kernel's launches
+(each on its own path: the single-quality DP and the gathers on config 2),
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and the exit code is not 0. Needs one CUDA card.
 """
@@ -105,7 +120,11 @@ CLR_FASTQ_MD5 = "897fb8881c92d3fc33874e9a065602f7"
 M4_REFERENCE = os.path.join(HERE, "tools", "jax_m4_reference.json")
 # the same for config 3's -m 5 lines on the FASTA corpus (tools/jax_m5_reference.py)
 M5_REFERENCE = os.path.join(HERE, "tools", "jax_m5_reference.json")
-RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0, "config3": 0}
+# the same for the SAM lines of config 2 (CLR FASTQ, -sam -clipping soft) and
+# of config 3 (tools/jax_sam_reference.py)
+SAM_REFERENCE = os.path.join(HERE, "tools", "jax_sam_reference.json")
+RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0, "config3": 0,
+                     "config2": 0, "config3_sam": 0}
 RECORD_FORMAT = {"fasta": "m4", "clr": "m4", "clr_guided": "m4", "config3": "m5"}
 # H100 SXM peaks: HBM 3.35 TB/s; INT32 ALU 132 SMs x 64 lanes x 1.98 GHz
 # (Hopper architecture white paper), the rate of the DP's integer work
@@ -150,6 +169,22 @@ def m4_digests(lines) -> dict:
         by_read.setdefault(name, []).append(line)
     return {name: hashlib.sha256("\n".join(ls).encode()).hexdigest()[:16]
             for name, ls in by_read.items()}
+
+
+def sam_digests(lines) -> tuple[str, dict]:
+    """(the first 16 hex digits of the sha256 of the @HD, @RG and @SQ lines
+    joined by newlines, ``m4_digests`` of the alignment lines keyed by
+    QNAME) of SAM text lines. @PG is left out: its CL is the command
+    line."""
+    header = [ln for ln in lines if ln.startswith("@") and not ln.startswith("@PG")]
+    body = [(ln.split("\t", 1)[0], ln) for ln in lines if ln and not ln.startswith("@")]
+    return hashlib.sha256("\n".join(header).encode()).hexdigest()[:16], m4_digests(body)
+
+
+def sam_flag_count(lines, flag: int) -> int:
+    """Alignment lines of SAM text whose FLAG has every bit of ``flag``."""
+    return sum(1 for ln in lines if ln and not ln.startswith("@")
+               and int(ln.split("\t", 2)[1]) & flag == flag)
 
 
 def n_secondaries(records) -> int:
@@ -562,25 +597,32 @@ def check_gathers(genome_pad) -> dict:
     return out
 
 
-def run_cli(reads_path: str, genome_fa: str, tag: str, extra=()) -> tuple[list, dict, float]:
+def run_cli(reads_path: str, genome_fa: str, tag: str, extra=(), ext: str = "m4"
+            ) -> tuple[list, dict, float]:
     """The user's command line on the card with CLI_FLAGS and ``extra``, in
-    its own process: (its m4 lines, its metrics JSON, seconds with the
-    process start)."""
+    its own process, writing ``<tag>.<ext>``: (its lines, a BAM file's as
+    SAM text read back through ``io/bam.read_bam``; its metrics JSON;
+    seconds with the process start)."""
     from blasr_tpu_torch.bench import BENCH_DIR
+    from blasr_tpu_torch.io.bam import read_bam
 
-    out_m4 = os.path.join(BENCH_DIR, f"{tag}.m4")
+    out_path = os.path.join(BENCH_DIR, f"{tag}.{ext}")
     out_metrics = os.path.join(BENCH_DIR, f"{tag}.metrics.json")
     t0 = time.time()
     proc = subprocess.run(
         [sys.executable, "-m", "blasr_tpu_torch.cli.blasr", reads_path, genome_fa,
-         *CLI_FLAGS, *extra, "-out", out_m4, "-metrics", out_metrics],
+         *CLI_FLAGS, *extra, "-out", out_path, "-metrics", out_metrics],
         cwd=HERE, capture_output=True, text=True, timeout=600,
     )
     seconds = time.time() - t0
     if proc.returncode != 0:
         raise AssertionError(f"CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
-    with open(out_m4) as f:
-        lines = f.read().splitlines()
+    if ext == "bam":
+        header, recs = read_bam(out_path)
+        lines = header + ["\t".join(r) for r in recs]
+    else:
+        with open(out_path) as f:
+            lines = f.read().splitlines()
     with open(out_metrics) as f:
         metrics = json.load(f)
     return lines, metrics, seconds
@@ -689,23 +731,94 @@ def check_cli_sam(genome_fa: str, clr_reads, index) -> dict:
     log(f"CLI on the card: {len(sub)} SAM reads with iq/sq -> {len(cli_lines)} m4 lines in "
         f"{cli_s:.1f} s (process included), equal to run_mapping; DP launches in the CLI "
         f"{cli_metrics['dpLaunches']}, in run_mapping {by_shape}")
-    return {"reads": len(sub), "lines": len(cli_lines), "seconds": cli_s,
-            "cli_dp_launches": cli_metrics["dpLaunches"], "dp_launches": by_shape,
-            "launches": counts}
+    out = {"reads": len(sub), "lines": len(cli_lines), "seconds": cli_s,
+           "cli_dp_launches": cli_metrics["dpLaunches"], "dp_launches": by_shape,
+           "launches": counts}
+    out["sam_output"] = check_cli_sam_output(sam, genome_fa, back, index)
+    return out
+
+
+def check_cli_sam_output(sam: str, genome_fa: str, reads, index) -> dict:
+    """The CLI's SAM output on phase 6's reads: -sam -clipping hard with two
+    of the reads' QV tracks and -unaligned prints write_sam's lines for
+    run_mapping's records in this process (@PG aside: its CL is the command
+    line), hard clips, on every mapped line the tracks its read has (every
+    eighth read has no iq) and the unmapped reads in the -unaligned file;
+    the same flags to a .bam read back equal the text."""
+    import io
+
+    import torch
+
+    from blasr_tpu_torch.bench import BENCH_DIR
+    from blasr_tpu_torch.output.sam_writer import write_sam
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    flags = ["-sam", "-clipping", "hard", "-samqv", "InsertionQV", "SubstitutionQV"]
+    unaligned = os.path.join(BENCH_DIR, "reads_clr_cli.unaligned.fa")
+    lines, _, sam_s = run_cli(sam, genome_fa, "reads_clr_cli_sam",
+                              [*flags, "-unaligned", unaligned], ext="sam")
+    bam_lines, _, bam_s = run_cli(sam, genome_fa, "reads_clr_cli_sam", flags, ext="bam")
+    params = cli_params(sam, genome_fa, flags)
+    if not params.emit_moves or params.samqv != ("iq", "sq"):
+        raise AssertionError(f"-sam -samqv parsed as emit_moves {params.emit_moves}, "
+                             f"samqv {params.samqv}")
+    recs, unmapped = run_mapping(index, reads, params, device="cuda")
+    torch.cuda.synchronize()
+    buf = io.StringIO()
+    write_sam(recs, reads, index.seqdb, buf, clipping="hard", unmapped=unmapped,
+              movie_name=os.path.basename(sam), genome=index.genome, samqv=params.samqv)
+
+    def no_pg(text_lines):
+        return [ln for ln in text_lines if not ln.startswith("@PG")]
+
+    want = no_pg(buf.getvalue().splitlines())
+    if no_pg(lines) != want:
+        raise AssertionError(f"CLI -sam output differs from write_sam of run_mapping: "
+                             f"{sum(a != b for a, b in zip(no_pg(lines), want))} of {len(want)} "
+                             f"lines, {len(no_pg(lines))} printed")
+    if no_pg(bam_lines) != want:
+        raise AssertionError("the CLI's BAM, read back, differs from its SAM text")
+    mapped = [ln.split("\t") for ln in want if not ln.startswith("@") and "\tAS:i:" in ln]
+    by_name = {r.name: r for r in reads}
+    tracks = [tuple(t[:3] for t in f[11:] if t[:3] in ("iq:", "sq:")) for f in mapped]
+    want_tracks = [tuple(t + ":" for t in ("iq", "sq") if t in by_name[f[0].rsplit("/", 1)[0]].qvs)
+                   for f in mapped]
+    if not any("H" in f[5] for f in mapped) or tracks != want_tracks:
+        raise AssertionError("no H clip in the hard-clipped SAM lines, or a line without the "
+                             "iq/sq tracks its read has")
+    with open(unaligned) as f:
+        unal = [ln[1:] for ln in f.read().splitlines() if ln.startswith(">")]
+    if unal != [r.name for r in reads if r.name in set(unmapped)] or not unal:
+        raise AssertionError(f"-unaligned wrote {len(unal)} reads, {len(unmapped)} unmapped")
+    log(f"CLI -sam -clipping hard -samqv InsertionQV SubstitutionQV -unaligned on the card: "
+        f"{len(mapped)} mapped lines with the iq/sq tracks of their reads "
+        f"({sum(len(t) == 2 for t in tracks)} with both), {sum('H' in f[5] for f in mapped)} "
+        f"with H clips, {len(unal)} unaligned, "
+        f"equal to write_sam of run_mapping ({sam_s:.1f} s, process included); to BAM read "
+        f"back equal ({bam_s:.1f} s)")
+    return {"lines": len(want) - sum(ln.startswith("@") for ln in want), "mapped": len(mapped),
+            "unaligned": len(unal), "seconds": sam_s, "bam_seconds": bam_s}
 
 
 def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
-               formatter=None) -> dict:
+               formatter=None, sam_movie: str | None = None) -> dict:
     """One warm-up run (unless ``warmup`` is False), then ``n_timed`` timed
     runs (every launch counter reset just before the first, read just after
     it), then one run with the per-stage clock. Each timed run's records
     are kept as lines, -m 4 unless ``formatter`` (record -> line) says
-    otherwise."""
+    otherwise. With ``sam_movie`` each timed run also writes its records
+    with ``write_sam`` (soft clipping, the genome, that movie name) into a
+    StringIO, timed in the same window after the mapping's own wall
+    (``sam_walls_s``, the write alone ``sam_write_s``), and keeps the SAM
+    text's lines."""
+    import io
+
     import torch
 
     from blasr_tpu_torch import bench
     from blasr_tpu_torch.ops import dp_launch_counts, launch_counts, reset_launch_counts
     from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.output.sam_writer import write_sam
     from blasr_tpu_torch.pipeline.mapper import StageClock
     from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
 
@@ -717,6 +830,7 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
         torch.cuda.synchronize()
         warm_s = time.time() - t0
     walls, line_runs = [], []
+    sam_walls, sam_writes, sam_runs = [], [], []
     for k in range(n_timed):
         met = MappingMetrics()
         if k == 0:
@@ -726,6 +840,16 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
         recs, unm = run_mapping(index, reads, params, device="cuda", metrics=met)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
+        if sam_movie is not None:
+            t1 = time.time()
+            buf = io.StringIO()
+            write_sam(recs, reads, index.seqdb, buf, clipping="soft", unmapped=unm,
+                      movie_name=sam_movie, genome=index.genome)
+            torch.cuda.synchronize()
+            t2 = time.time()
+            sam_writes.append(t2 - t1)
+            sam_walls.append(t2 - t0)
+            sam_runs.append(buf.getvalue().splitlines())
         line_runs.append(([(r.qname, formatter(r)) for r in recs], unm))
         if k == 0:
             counts, by_shape = launch_counts(), dp_launch_counts()
@@ -750,7 +874,13 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
     log(f"  stage clock ({clocked_s:.2f} s run): " + ", ".join(
         f"{k} {v:.3f} s ({100 * v / max(total_stage, 1e-9):.1f}%)" for k, v in stage.items()))
     log(f"  kernel launches in the first timed run: {counts}; DP by shape {by_shape}")
-    return {"reads": len(reads), "walls_s": walls, "warm_s": warm_s,
+    out = {}
+    if sam_movie is not None:
+        log("  with write_sam: reads/s " + ", ".join(f"{len(reads) / w:.1f}" for w in sam_walls)
+            + "; SAM write alone " + ", ".join(f"{w:.3f} s" for w in sam_writes))
+        out = {"sam_walls_s": sam_walls, "sam_write_s": sam_writes, "sam_runs": sam_runs,
+               "reads_per_s_with_sam": [len(reads) / w for w in sam_walls]}
+    return {**out, "reads": len(reads), "walls_s": walls, "warm_s": warm_s,
             "reads_per_s": [len(reads) / w for w in walls], "accuracy_true_locus": acc,
             "records": len(records), "secondaries": n_secondaries(records),
             "unmapped": len(unmapped),
@@ -761,10 +891,11 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
 
 def load_references() -> dict:
     """The JAX package's per-read digests: -m 4 on the three corpora
-    (tools/jax_m4_reference.py) and config 3's -m 5 on the FASTA corpus
-    (tools/jax_m5_reference.py), both written on the CPU."""
+    (tools/jax_m4_reference.py), config 3's -m 5 on the FASTA corpus
+    (tools/jax_m5_reference.py) and the SAM lines of configs 2 and 3
+    (tools/jax_sam_reference.py), all written on the CPU."""
     refs = {}
-    for path in (M4_REFERENCE, M5_REFERENCE):
+    for path in (M4_REFERENCE, M5_REFERENCE, SAM_REFERENCE):
         with open(path) as f:
             refs.update(json.load(f))
     return refs
@@ -804,6 +935,48 @@ def check_records(corpus: str, res: dict, ref: dict, reads_path: str, out_dir) -
                 f"{corpus}: {len(diff)} reads' -m {fmt[1]} lines differ from the JAX package's "
                 f"(limit {RECORD_DIFF_LIMIT[corpus]}); first {sorted(diff)[:5]}")
     return {"reads_differing": counts, "limit": RECORD_DIFF_LIMIT[corpus]}
+
+
+def check_sam_records(cell: str, res: dict, refs: dict, reads_path: str, out_dir) -> dict:
+    """Every timed run's SAM lines against the JAX package's
+    (tools/jax_sam_reference.json ``cell``), read by read: the digest of
+    the @HD, @RG and @SQ lines must be equal, and a read differs when the
+    digest of its lines differs or only one side has lines for it. Also the
+    number of lines with FLAG 4 and with FLAG 256. Writes the first timed
+    run's text to <out_dir>/sam_<cell>.sam when ``out_dir`` is given. Fails
+    above RECORD_DIFF_LIMIT[cell]."""
+    ref = refs[cell]
+    with open(reads_path, "rb") as f:
+        md5 = hashlib.md5(f.read()).hexdigest()
+    if md5 != ref["reads_md5"] or os.path.basename(reads_path) != ref["movie_name"]:
+        raise AssertionError(f"{cell}: reads {reads_path} (md5 {md5}) are not the reference's "
+                             f"{ref['movie_name']} ({ref['reads_md5']})")
+    runs = res.pop("sam_runs")
+    if out_dir:
+        with open(os.path.join(out_dir, f"sam_{cell}.sam"), "w") as f:
+            f.writelines(line + "\n" for line in runs[0])
+    counts = []
+    for k, lines in enumerate(runs):
+        header, got = sam_digests(lines)
+        diff = {n for n in set(got) | set(ref["digests"]) if got.get(n) != ref["digests"].get(n)}
+        body = [ln for ln in lines if not ln.startswith("@")]
+        flags = (sam_flag_count(lines, 4), sam_flag_count(lines, 256))
+        same_sorted = sorted_sha256(body) == ref["sha256_sorted"]
+        counts.append(len(diff))
+        log(f"  SAM lines against the JAX package's ({cell}, timed run {k + 1}): {len(diff)} reads "
+            f"differ{': ' + ', '.join(sorted(diff)[:5]) if diff else ''}; header "
+            f"{'equal' if header == ref['header_sha256'] else 'differs'}; {len(body)} lines "
+            f"(JAX {ref['lines']}), FLAG 4 {flags[0]} (JAX {ref['unmapped_lines']}), FLAG 256 "
+            f"{flags[1]} (JAX {ref['secondaries']}); sorted sha256 "
+            f"{'equal' if same_sorted else 'differs'}")
+        if header != ref["header_sha256"]:
+            raise AssertionError(f"{cell}: the SAM header differs from the JAX package's")
+        if len(diff) > RECORD_DIFF_LIMIT[cell]:
+            raise AssertionError(
+                f"{cell}: {len(diff)} reads' SAM lines differ from the JAX package's (limit "
+                f"{RECORD_DIFF_LIMIT[cell]}); first {sorted(diff)[:5]}")
+    return {"reads_differing": counts, "limit": RECORD_DIFF_LIMIT[cell],
+            "lines": len(body), "unmapped_lines": flags[0], "secondaries": flags[1]}
 
 
 def profile_batch(index, reads, params) -> dict:
@@ -1019,8 +1192,13 @@ def check_config3(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_d
     by_name = {r.name: r for r in reads}
     log("config 3 (-bestn 2 -m 5) on the FASTA corpus through run_mapping:")
     res = map_corpus(index, reads, params, n_timed=1,
-                     formatter=lambda r: format_m5(r, by_name[r.qname], index))
+                     formatter=lambda r: format_m5(r, by_name[r.qname], index),
+                     sam_movie=os.path.basename(reads_fa))
     res["records_vs_jax"] = check_records("config3", res, refs, reads_fa, out_dir)
+    res["sam_vs_jax"] = check_sam_records("config3_sam", res, refs, reads_fa, out_dir)
+    if res["sam_vs_jax"]["secondaries"] != refs["config3_sam"]["secondaries"]:
+        raise AssertionError(f"config 3's SAM has {res['sam_vs_jax']['secondaries']} FLAG 256 "
+                             f"lines, the JAX package's {refs['config3_sam']['secondaries']}")
     ref = refs["config3"]
     acc = res["accuracy_true_locus"]
     if acc != fasta["accuracy_true_locus"] or acc != ref["accuracy_true_locus"]:
@@ -1065,6 +1243,69 @@ def check_config3(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_d
     res.update(walk_batch_moves=walk_m, walk_batch_no_moves=walk_0,
                cli={"reads": len(sub), "lines": len(lines), "seconds": secs,
                     "dp_launches": metrics["dpLaunches"]})
+    return res
+
+
+def check_config2(reads_fq: str, clr_reads, index, refs: dict, out_dir, fastq: dict) -> dict:
+    """Config 2 (-sam -clipping soft) on the CLR FASTQ corpus at the bench
+    operating point with move strings: warm-up, two timed runs of
+    run_mapping plus write_sam into a StringIO, the per-stage clock; every
+    timed run's SAM lines against the JAX package's read by read, the
+    header equal; accuracy equal to the -m 4 run's (phase 5); every kernel
+    launched, the single-quality DP at W = 32 and, for the escalated
+    reads, W = 256; the lines read back through the port's read_sam from
+    SAM text and from BAM."""
+    import numpy as np
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.io.bam import write_bam_from_sam_lines
+    from blasr_tpu_torch.io.sam import read_sam
+
+    params = bench.bench_params(emit_moves=True)
+    log("config 2 (-sam -clipping soft) on the CLR FASTQ corpus through run_mapping + write_sam:")
+    res = map_corpus(index, clr_reads, params, n_timed=2, sam_movie=os.path.basename(reads_fq))
+    lines = res["sam_runs"][0]
+    res["sam_vs_jax"] = check_sam_records("config2", res, refs, reads_fq, out_dir)
+    acc = res["accuracy_true_locus"]
+    if acc != fastq["accuracy_true_locus"]:
+        raise AssertionError(f"config 2 accuracy_true_locus {acc:.4f}, the -m 4 run's "
+                             f"{fastq['accuracy_true_locus']:.4f}")
+    missing = [k for k, v in res["launches"].items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the config 2 path: {missing}")
+    by = res["dp_launches"]
+    if not by.get("W32/single") or not by.get("W256/single") or res["escalated"] == 0:
+        raise AssertionError(f"config 2 ran no single-quality DP at W=32 and W=256, or no read "
+                             f"escalated: {by}, {res['escalated']} escalated")
+    # the lines back through the port's reader, as SAM text and as BAM
+    t0 = time.time()
+    sam_path = os.path.join(bench.BENCH_DIR, "config2.sam")
+    with open(sam_path, "w") as f:
+        f.writelines(line + "\n" for line in lines)
+    bam_path = os.path.join(bench.BENCH_DIR, "config2.bam")
+    header = [ln for ln in lines if ln.startswith("@")]
+    body = [ln for ln in lines if not ln.startswith("@")]
+    write_bam_from_sam_lines(header, body, bam_path)
+    text, binary = read_sam(sam_path), read_sam(bam_path)
+
+    def key(rec):
+        return (rec.qname, rec.flag, rec.seq,
+                None if rec.qual is None else rec.qual.tobytes(), rec.tags)
+
+    if (text.header_lines != header or binary.header_lines != header
+            or [key(r) for r in binary.records] != [key(r) for r in text.records]
+            or [(r.qname, str(r.flag), r.seq) for r in text.records]
+            != [(f[0], f[1], f[9]) for f in (ln.split("\t") for ln in body)]):
+        raise AssertionError("config 2's SAM lines do not read back the same through read_sam")
+    round_s = time.time() - t0
+    st = res["stage_seconds"]
+    log(f"config 2: reads/s with the SAM write "
+        + ", ".join(f"{x:.1f}" for x in res["reads_per_s_with_sam"])
+        + f" (write {', '.join(f'{x:.3f}' for x in res['sam_write_s'])} s); accuracy {acc:.4f} "
+        f"equal to the -m 4 run's; walk stage {st.get('walk', 0):.3f} s (CLR -m 4 "
+        f"{fastq['stage_seconds'].get('walk', 0):.3f} s); DP launches by (W, mode) {by}; "
+        f"{len(text.records)} lines read back equal from SAM text and BAM ({round_s:.1f} s)")
+    res["round_trip_s"] = round_s
     return res
 
 
@@ -1188,13 +1429,18 @@ def run(out_path: str | None) -> int:
     # ---- phase 9: config 3, -bestn 2 -m 5 ----
     config3 = check_config3(genome_fa, reads_fa, reads, index, refs, out_dir, fasta, cli)
 
+    # ---- phase 10: config 2, -sam -clipping soft on the CLR FASTQ corpus ----
+    config2 = check_config2(reads_fq, clr_reads, index, refs, out_dir, fastq)
+
     # ---- the kernels line ----
     def dp_row(mode):
         return next(r for r in dp_rows if (r["W"], r["L"], r["mode"]) == (*MAIN_DP_SHAPE, mode))
 
+    # each kernel's launches on its own path: the quality-free DP on the
+    # FASTA corpus, the single-quality DP and both gathers on config 2
     dp_launches = {
         "none": fasta["launches"]["banded_dp"],
-        "single": sum(fastq["dp_launches"].values()),
+        "single": sum(config2["dp_launches"].values()),
         "dual": sum(n for k, n in sam["dp_launches"].items() if k.endswith("/dual")),
     }
     kernels = []
@@ -1214,7 +1460,7 @@ def run(out_path: str | None) -> int:
         src, replaces = KERNEL_META[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": fastq["launches"][name],
+            "launches": config2["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in g_rows[name]),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1256,7 +1502,7 @@ def run(out_path: str | None) -> int:
                 "micro_dma_launches": micro_launches,
                 "fasta": fasta, "cli": {k: v for k, v in cli.items() if k != "m4"},
                 "profile": prof, "fastq": fastq, "cli_sam": sam, "guided": guided,
-                "matrix": matrix, "config3": config3,
+                "matrix": matrix, "config3": config3, "config2": config2,
                 "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
                 "jax_guided_accuracy_cpu": JAX_GUIDED_ACCURACY,
                 "seconds": time.time() - t_start,

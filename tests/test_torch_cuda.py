@@ -556,3 +556,54 @@ def test_pack_codes_rows_on_the_card_equals_cpu(dev, width):
     c, n = torch.from_numpy(codes), torch.from_numpy(nops)
     assert torch.equal(pack_codes_rows(c.to(dev), n.to(dev), width).cpu(),
                        pack_codes_rows(c, n, width))
+
+
+@pytest.mark.parametrize("best_n", [1, 2])
+def test_sam_lines_on_the_card_equal_cpu(dev, best_n):
+    """Config 2's settings at a small size, and with -bestn 2 on a genome
+    with a repeat: the SAM lines (every clip mode) of a card run equal the
+    CPU run's, tolerance 0; at best_n 1 reads with an insertion burst
+    escalate to the wide band, whose move strings the card's walk returns."""
+    import io
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+    from blasr_tpu_torch.io.batching import Read
+    from blasr_tpu_torch.io.seqdb import SeqDB
+    from blasr_tpu_torch.output.sam_writer import write_sam
+    from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
+
+    rng = np.random.default_rng(19 + best_n)
+    G = 100_000
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    seg = genome[5_000:6_500].copy()
+    seg[rng.random(1500) < 0.04] = 1
+    genome[70_000:71_500] = seg
+    seqdb = SeqDB(["chrA", "chrB"], np.array([0, 40_000, G]), ["0" * 32] * 2)
+    index = build_index_from_arrays(genome, seqdb, k=10)
+    reads = []
+    for i in range(24):
+        s = 5_000 + int(rng.integers(0, 600)) if i % 3 == 0 else int(rng.integers(0, G - 1500))
+        r = genome[s : s + int(rng.integers(300, 1200))].copy()
+        r[::17] = (r[::17] + 1) % 4
+        if i % 5 == 4:                       # an insertion burst the narrow band clips
+            r = np.concatenate([r[:150], rng.integers(0, 4, 80).astype(np.uint8), r[150:]])
+        if i % 2:
+            r = np.where(r < 4, 3 - r, r)[::-1].copy()
+        reads.append(Read(f"r{i}", r, rng.integers(3, 40, len(r)).astype(np.uint8), i))
+    params = bench.bench_params(batch_size=8, max_read_len=1536, narrow_band_max=1536,
+                                min_match_length=10, emit_moves=True, best_n=best_n)
+    out = {}
+    for device in ("cpu", "cuda"):
+        met = MappingMetrics()
+        recs, unm = run_mapping(index, reads, params, device=device, metrics=met)
+        texts = []
+        for clipping in ("soft", "hard", "none", "subread"):
+            buf = io.StringIO()
+            write_sam(recs, reads, seqdb, buf, clipping=clipping, unmapped=unm,
+                      movie_name="reads.fastq", genome=genome)
+            texts.append(buf.getvalue())
+        out[device] = (texts, met.escalated_reads, len(recs) - len({r.qname for r in recs}))
+    assert out["cuda"] == out["cpu"]
+    # best_n 1 escalates reads to the wide band; best_n 2 emits secondaries
+    assert out["cpu"][1 if best_n == 1 else 2] > 0

@@ -2,12 +2,13 @@
 originals, and the C++ host helpers against their plain versions.
 
 The port imports nothing of ``blasr_tpu``; these tests hold each copy it
-keeps (params, sim, io, index, cli flags, native, the secondary admission
-and the verbose writers) equal to the module it was copied from, on the
-same inputs or, for the two copied whole, line for line."""
+keeps (params, sim, io, index, cli flags, native, the secondary admission,
+the verbose and SAM writers and BAM) equal to the module it was copied
+from, on the same inputs or, for the three copied whole, line for line."""
 
 import ast
 import dataclasses
+import fcntl
 import gzip
 import os
 
@@ -26,6 +27,31 @@ from blasr_tpu_torch.cli import args as targs
 from blasr_tpu_torch.core import encode
 from blasr_tpu_torch.index import artifacts, suffix_array
 from blasr_tpu_torch.io import batching, seqdb
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def build_jax_native_once() -> None:
+    """Build the JAX package's C++ library once for all test processes.
+
+    ``blasr_tpu.native`` compiles ``libblasr_native.so`` in place on first
+    use, under a lock that only guards threads; parallel test workers that
+    reach it together can load a half-written file and then run without it
+    for the rest of the test run. Every worker collects this module before
+    any test runs, so building here under a file lock, one worker after
+    another, leaves a whole library for all of them."""
+    from blasr_tpu import native as jnative
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with open(os.path.join(REPO, "build", "blasr_native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            jnative.available()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+build_jax_native_once()
 
 
 def test_mapping_params_fields_and_defaults_equal_jax():
@@ -135,8 +161,12 @@ def test_read_records_equal_jax(read_files, name):
 
 
 def test_bam_input_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="BAM"):
-        batching.read_records(str(tmp_path / "r.bam"))
+    """A .bam read file that is not BGZF raises in both packages alike."""
+    bad = tmp_path / "r.bam"
+    bad.write_text("r1\t4\t*\t0\t0\t*\t*\t0\t0\tACGT\t*\n")
+    for pkg in (jbat, batching):
+        with pytest.raises(ValueError, match="bad BGZF member"):
+            pkg.read_records(str(bad))
 
 
 @pytest.mark.parametrize("mode", ["none", "single", "dual"])
@@ -210,15 +240,15 @@ def test_native_helpers_equal_their_plain_versions():
                                       native.unpack_moves_plain(packed, nops))
 
 
-@pytest.mark.parametrize("module", ["pipeline/secondary_refine.py", "output/verbose.py"])
+@pytest.mark.parametrize("module", ["pipeline/secondary_refine.py", "output/verbose.py",
+                                    "io/bam.py"])
 def test_whole_module_copies_equal_jax(module):
     """The copies made whole: the same code as the original once the
     port's package name reads as the JAX package's; only the module
     docstrings differ."""
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
     def body(pkg):
-        with open(os.path.join(repo, pkg, module)) as f:
+        with open(os.path.join(REPO, pkg, module)) as f:
             tree = ast.parse(f.read())
         assert isinstance(tree.body[0], ast.Expr)            # the docstring
         tree.body = tree.body[1:]
@@ -227,3 +257,24 @@ def test_whole_module_copies_equal_jax(module):
     port = body("blasr_tpu_torch")
     assert port == body("blasr_tpu")
     assert "def " in port
+
+
+def test_sam_writer_copy_equals_jax():
+    """``output/sam_writer.py``: every function but the two CIGAR routes is
+    the JAX package's code; those two call the port's C++ helpers, which
+    never return None, so the JAX writer's numpy CIGAR route
+    (``_xeq_runs``) has no copy."""
+
+    def functions(pkg):
+        with open(os.path.join(REPO, pkg, "output/sam_writer.py")) as f:
+            tree = ast.parse(f.read())
+        # the package's name, in imports and as the default command line
+        return {n.name: ast.unparse(n).replace("blasr_tpu_torch", "blasr_tpu")
+                for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+    jf, tf = functions("blasr_tpu"), functions("blasr_tpu_torch")
+    assert set(jf) - set(tf) == {"_xeq_runs"} and set(tf) <= set(jf)
+    same = set(tf) - {"_cigar_string", "format_sam_record"}
+    assert len(same) == 6
+    for name in same:
+        assert tf[name] == jf[name], name

@@ -1,9 +1,9 @@
 """The port stands alone: subprocesses with ``jax`` and the whole
 ``blasr_tpu`` package blocked import blasr_tpu_torch and map FASTA and
 FASTQ reads end to end on the CPU to -m 4 lines, through the library and
-through the CLI (also with ``-useGuidedAlign -scoreMatrix``, and to -m 5
-lines with ``-bestn 2``), and no file of the port imports either
-package."""
+through the CLI (also with ``-useGuidedAlign -scoreMatrix``, to -m 5
+lines with ``-bestn 2``, and to SAM and BAM with ``-sam``), and no file of
+the port imports either package."""
 
 import io
 import json
@@ -131,6 +131,11 @@ def cli_outputs(tmp_path_factory):
     runs = [f"{tmp_path / f'r.{fmt}'},{tmp_path / f'{fmt}.m4'}" for fmt in CLI_FORMATS]
     runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'guided_matrix.m4'},{GUIDED_MATRIX}")
     runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'bestn2_m5.m4'},-bestn 2 -m 5")
+    # SAM text with hard clips and a QV track, then SAM (soft) as BAM
+    runs.append(f"{tmp_path / 'r.sam'},{tmp_path / 'sam_hard.m4'},-sam -clipping hard "
+                f"-samqv InsertionQV")
+    runs.append(f"{tmp_path / 'r.sam'},{tmp_path / 'sam_soft.m4'},-sam")
+    runs.append(f"{tmp_path / 'r.sam'},{tmp_path / 'bam.bam'},-sam")
     proc = subprocess.run(
         [sys.executable, "-c", CLI_SCRIPT, str(tmp_path / "g.fa"),
          "-m", "4", "-header", "-device", "cpu", "-minMatch", "10",
@@ -138,8 +143,12 @@ def cli_outputs(tmp_path_factory):
         cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    return {run: (tmp_path / f"{run}.m4").read_text().splitlines()
-            for run in (*CLI_FORMATS, "guided_matrix", "bestn2_m5")}
+    from blasr_tpu_torch.io.bam import read_bam
+
+    header, recs = read_bam(str(tmp_path / "bam.bam"))
+    return {"bam": header + ["\t".join(r) for r in recs],
+            **{run: (tmp_path / f"{run}.m4").read_text().splitlines()
+               for run in (*CLI_FORMATS, "guided_matrix", "bestn2_m5", "sam_hard", "sam_soft")}}
 
 
 def test_cli_writes_m4_with_jax_blocked(cli_outputs):
@@ -178,6 +187,25 @@ def test_cli_writes_bestn2_m5_with_jax_blocked(cli_outputs):
         assert (f[10], f[2], f[3], f[9]) == (g[2], g[5], g[6], "+-"[int(g[8])])
 
 
+def test_cli_writes_sam_and_bam_with_jax_blocked(cli_outputs):
+    """-sam -clipping hard -samqv InsertionQV: a header, then one line a
+    read with H clips, = and X runs and the iq track; -sam to a .bam reads
+    back as the soft-clipped SAM text."""
+    lines = cli_outputs["sam_hard"]
+    header = [ln for ln in lines if ln.startswith("@")]
+    body = [ln.split("\t") for ln in lines if not ln.startswith("@")]
+    assert header[0].startswith("@HD") and header[-1].startswith("@PG")
+    assert "@SQ\tSN:chr1\tLN:40000" in "\n".join(header)
+    assert sorted(f[0] for f in body) == [f"q{i}/0_500" for i in range(6)]
+    for f in body:
+        assert f[1] in ("0", "16") and "H" not in f[5].strip("0123456789H")
+        assert "=" in f[5] and len(f[9]) == len(f[10]) < 500
+        assert any(t.startswith("iq:Z:") for t in f[11:])
+        assert not any(t.startswith("sq:Z:") for t in f[11:])
+    assert cli_outputs["bam"] == cli_outputs["sam_soft"]
+    assert cli_outputs["bam"] != lines
+
+
 def _check_cli_lines(lines):
     assert lines[0].startswith("qname tname score")
     assert len(lines) == 7
@@ -187,11 +215,11 @@ def _check_cli_lines(lines):
 def test_cli_names_unsupported_options():
     from blasr_tpu_torch.cli.blasr import main
 
-    for argv, name in ((["-sam"], "-sam"), (["-bwt"], "-bwt"),
+    for argv, name in ((["-resume"], "-resume"), (["-bwt"], "-bwt"),
                        (["-useSensitiveSearch"], "-useSensitiveSearch"),
                        (["-placeRepeatsRandomly"], "-placeRepeatsRandomly"),
-                       (["-samqv", "InsertionQV"], "-samqv"),
-                       (["-clipping", "hard"], "-clipping")):
+                       (["-start", "3"], "-start"),
+                       (["-readIndex", "2"], "-readIndex")):
         with pytest.raises(SystemExit, match=name):
             main(["r.fa", "g.fa", *argv])
 

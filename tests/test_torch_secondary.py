@@ -18,9 +18,11 @@ from blasr_tpu.core.encode import revcomp_codes
 from blasr_tpu.index.artifacts import build_index_from_arrays
 from blasr_tpu.io.batching import Read
 from blasr_tpu.io.seqdb import SeqDB
+from blasr_tpu.output import sam_writer as jsam
 from blasr_tpu.output import verbose as jverbose
 from blasr_tpu.pipeline import secondary_refine as jsr
 from blasr_tpu.pipeline.runner import run_mapping as jax_run_mapping
+from blasr_tpu_torch.output import sam_writer as tsam
 from blasr_tpu_torch.output import verbose as tverbose
 from blasr_tpu_torch.pipeline import secondary_refine as tsr
 from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
@@ -164,3 +166,19 @@ def test_write_verbose_equals_jax(repeat_mapping, fmt):
     tverbose.write_verbose(trec, reads, index, tbuf, fmt=fmt, header=True)
     assert tbuf.getvalue() == jbuf.getvalue()
     assert tbuf.getvalue().count("\n") >= len(trec)
+
+
+@pytest.mark.parametrize("clipping", ["soft", "hard", "none"])
+def test_write_sam_bestn2_equals_jax(repeat_mapping, clipping):
+    """-bestn 2 as SAM: each read's lowest score is its primary, the others
+    carry FLAG 256; a secondary on the SDP chain's span has no move string
+    and takes the xeq_cigar route."""
+    reads, (jrec, junm), (trec, tunm), _, index = repeat_mapping
+    kw = dict(clipping=clipping, movie_name="reads.fasta", program_line="blasr_tpu -bestn 2 -sam")
+    jbuf, tbuf = io.StringIO(), io.StringIO()
+    jsam.write_sam(jrec, reads, index.seqdb, jbuf, unmapped=junm, genome=index.genome, **kw)
+    tsam.write_sam(trec, reads, index.seqdb, tbuf, unmapped=tunm, genome=index.genome, **kw)
+    assert tbuf.getvalue() == jbuf.getvalue()
+    body = [ln.split("\t") for ln in tbuf.getvalue().splitlines() if not ln.startswith("@")]
+    assert sum(int(f[1]) & 256 > 0 for f in body) == len(trec) - len({r.qname for r in trec}) > 0
+    assert any(r.path.packed is None for r in trec)
