@@ -106,6 +106,15 @@ def config3_params() -> MappingParams:
     return bench_params(best_n=2, emit_moves=True)
 
 
+def config4_params() -> MappingParams:
+    """The reference measurement's config 4 (``-bwt -m 4``,
+    ``scripts/bench_config34.py:89-96``): the bench operating point at
+    B=64, best_n 1, no move strings, anchored through the FM index. B=64
+    keeps the JAX package's batches, so a read has the same batch mates
+    (its records depend on them)."""
+    return bench_params(batch_size=64, best_n=1, emit_moves=False)
+
+
 def true_locus_windows(genome, reads, L: int, pad2: int = 128):
     """The DP inputs of simulated reads at their true loci, as the mapper
     places them: each read's forward-strand codes cut to ``L`` (N-padded),

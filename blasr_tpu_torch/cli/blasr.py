@@ -24,6 +24,11 @@ X; ``-clipping`` chooses the clip of the unaligned ends, ``-samqv`` the
 read's QV tracks echoed as tags. ``-unaligned FILE`` writes the unmapped
 reads (names only with ``-noPrintUnalignedSeqs``), and ``-titleTable
 FILE`` writes the contig names and prints each contig by its index.
+``-bwt [FILE]`` anchors by FM backward search instead of the suffix
+array's direct tables (the reference's low-memory mode): FILE is a
+``.btfm.npz`` bundle that is loaded, or built from the genome and saved
+there when missing (default ``<genome>.btfm.npz``), or a reference binary
+``.bwt``, checked against the genome FASTA.
 ``-device`` defaults to ``cuda`` and never falls back to the CPU.
 """
 
@@ -49,7 +54,9 @@ SUPPORTED = {
     "affineOpen", "affineExtend", "pvaltype", "indelRate",
     "ignoreQualities", "minAvgQual", "useGuidedAlign", "scoreMatrix",
     "sam", "clipping", "samqv", "unaligned", "noPrintUnalignedSeqs", "titleTable",
+    "bwt",
 }
+FM_SUFFIX = ".btfm.npz"   # the FM bundle beside the genome (the JAX package's name)
 
 
 def build_parser():
@@ -79,6 +86,42 @@ def unsupported_options(parser, args) -> list[str]:
     return bad
 
 
+def load_fm_index(genome_path: str, bwt: str, k: int):
+    """(genome-only GenomeIndex, FMIndex) for ``-bwt [FILE]``: the FM path
+    needs only the genome codes, the seed-validity mask and the contig db,
+    so no suffix-array bundle is built. FILE (default ``<genome>`` +
+    ``FM_SUFFIX``) is a reference ``.bwt`` (inverted and checked against
+    the FASTA, then the FM index is built from the genome), an existing FM
+    bundle (loaded), or else the path the FM index is built and saved to."""
+    import numpy as np
+
+    from blasr_tpu_torch.index.artifacts import GenomeIndex, build_pos_ok
+    from blasr_tpu_torch.index.fm import FMIndex, build_fm_index
+    from blasr_tpu_torch.index.suffix_array import build_suffix_array
+    from blasr_tpu_torch.io.seqdb import load_genome
+
+    genome, seqdb = load_genome(genome_path)
+    empty = np.zeros(0, np.int32)
+    index = GenomeIndex(genome, empty, empty, build_pos_ok(genome, seqdb, k), k, seqdb)
+    fm_path = bwt or (genome_path + FM_SUFFIX)
+    if fm_path.endswith(".bwt") and os.path.exists(fm_path):
+        from blasr_tpu_torch.index.bwtfile import read_ref_bwt, ref_bwt_genome_matches
+        from blasr_tpu_torch.io.fasta import read_fasta
+
+        if not ref_bwt_genome_matches(read_ref_bwt(fm_path), read_fasta(genome_path)):
+            raise SystemExit(f"{fm_path}: .bwt content does not match {genome_path}")
+        fm = build_fm_index(genome, build_suffix_array(genome))
+    elif os.path.exists(fm_path):
+        fm = FMIndex.load(fm_path)
+    else:
+        fm = build_fm_index(genome, build_suffix_array(genome))
+        try:
+            fm.save(fm_path)
+        except OSError:
+            pass
+    return index, fm
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -102,7 +145,11 @@ def main(argv=None) -> int:
     from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
 
     t_start = time.time()
-    index = load_index(args.genome, k=params.min_match_length)
+    fm = None
+    if args.bwt is not None:
+        index, fm = load_fm_index(args.genome, args.bwt, params.min_match_length)
+    else:
+        index = load_index(args.genome, k=params.min_match_length)
     t_index = time.time() - t_start
     reads = read_records(args.reads)
     if args.titleTable:
@@ -114,7 +161,8 @@ def main(argv=None) -> int:
         index.seqdb.names = [str(i) for i in range(len(index.seqdb.names))]
     met = MappingMetrics()
     t0 = time.time()
-    records, unmapped = run_mapping(index, reads, params, device=args.device, metrics=met)
+    records, unmapped = run_mapping(index, reads, params, device=args.device, metrics=met,
+                                    fm=fm)
     t_map = time.time() - t0
 
     def sam(out):

@@ -109,8 +109,10 @@ def load_index(genome_path: str, k: int = 14, cache: bool = True) -> GenomeIndex
 
     The reference's index auto-discovery (Blasr.cpp:4375-4449) also takes
     a ``.bwt`` or ``.sa`` file beside the genome; the port builds the
-    suffix array from the FASTA itself (``.sa``/``.bwt`` inputs: ROADMAP
-    queue 1 items 12-13). The cache file is the JAX package's format.
+    suffix array from the FASTA itself (``.sa`` input: ROADMAP queue 1
+    item 12; ``.bwt`` and FM bundles go through the CLI's ``-bwt``, which
+    builds a genome-only index with an empty ``sa`` and ``sa_kmers``). The
+    cache file is the JAX package's format.
     """
     idx_path = genome_path + INDEX_SUFFIX
     if cache and os.path.exists(idx_path) and os.path.getmtime(idx_path) >= os.path.getmtime(genome_path):

@@ -23,32 +23,54 @@ def device_index_from_numpy(
     genome_len: int,
     kind: str = "sa",
     lut_meta: tuple | None = (0, 0),
+    fm_n: int = 0,
     device: str | torch.device = "cpu",
 ) -> DeviceIndex:
     """The port's DeviceIndex from the numpy images of a JAX DeviceIndex of
-    the direct-table kind: ``arrays = (sa_valid, ctab16, lut_full,
-    lut_valid)``. ``ctab16`` (uint16) moves as its bit pattern in int16."""
-    if kind != "sa" or lut_meta is None or tuple(lut_meta)[1] != 0:
-        raise NotImplementedError(
-            "only the direct-table suffix-array index is ported"
-        )
-    sa_valid, ctab16, lut_full, lut_valid = (np.asarray(a) for a in arrays)
+    the direct-table kind, ``arrays = (sa_valid, ctab16, lut_full,
+    lut_valid)`` (``ctab16``, uint16, moves as its bit pattern in int16),
+    or of the FM kind (``kind="fm"``, ``fm_n`` rows), ``arrays =
+    (bwt_rows, occ_bins, C, ssa_mask, ssa_base, ssa_vals, pos_ok)`` (the
+    uint32 ``ssa_mask`` moves as int64 words holding its values)."""
 
     def dev(a: np.ndarray, dtype) -> torch.Tensor:
         # a private writable copy: numpy views of device arrays are read-only
         return torch.from_numpy(np.array(a, copy=True, order="C").view(dtype)).to(device)
 
-    return DeviceIndex(
+    common = dict(
         genome_pad=dev(genome_pad, np.int32),
+        starts=dev(starts, np.int32),
+        pad=int(pad),
+        k=int(k),
+        genome_len=int(genome_len),
+    )
+    if kind == "fm":
+        bwt_rows, occ_bins, C, ssa_mask, ssa_base, ssa_vals, pos_ok = (
+            np.asarray(a) for a in arrays)
+        return DeviceIndex(
+            arrays=(
+                dev(bwt_rows, np.uint8),
+                dev(occ_bins, np.int32),
+                dev(C.astype(np.int32), np.int32),
+                dev(ssa_mask.astype(np.uint32).astype(np.int64), np.int64),
+                dev(ssa_base, np.int32),
+                dev(ssa_vals.astype(np.int32), np.int32),
+                dev(pos_ok, np.bool_),
+            ),
+            lut_meta=None, kind="fm", fm_n=int(fm_n), **common,
+        )
+    if kind != "sa" or lut_meta is None or tuple(lut_meta)[1] != 0:
+        raise NotImplementedError(
+            "only the direct-table suffix-array index and the FM index are ported"
+        )
+    sa_valid, ctab16, lut_full, lut_valid = (np.asarray(a) for a in arrays)
+    return DeviceIndex(
         arrays=(
             dev(sa_valid, np.int32),
             dev(ctab16, np.int16),
             dev(lut_full, np.int32),
             dev(lut_valid, np.int32),
         ),
-        starts=dev(starts, np.int32),
-        pad=int(pad),
-        k=int(k),
-        genome_len=int(genome_len),
         lut_meta=tuple(lut_meta),
+        **common,
     )

@@ -1,13 +1,15 @@
 """Per-batch mapping step on the device.
 
 Port of ``blasr_tpu.pipeline.mapper`` for the suffix-array index with the
-direct 4^k tables, with or without quality values, with or without guided
-bands (``-useGuidedAlign``) and a score matrix (``-scoreMatrix``). One
-batch of padded reads goes through, in order:
+direct 4^k tables and for the FM-index (``-bwt``), with or without quality
+values, with or without guided bands (``-useGuidedAlign``) and a score
+matrix (``-scoreMatrix``). One batch of padded reads goes through, in
+order:
 
   1. reverse complements appended -> (2B, L) strand-expanded batch (and
      the quality rows reversed, when the batch carries them)
   2. anchors through the direct count tables          (ops/anchors.py)
+     or by FM backward search and locate              (ops/fm_search.py)
   3. candidate windows per read-strand                 (ops/candidates.py)
   4. chain evidence, admission, the top CD windows per read across strands
   5. drift-slope band schedule and per-item centring, the per-item guided
@@ -51,6 +53,7 @@ from blasr_tpu_torch.ops.candidates import (
     ordered_sum,
     select_candidates,
 )
+from blasr_tpu_torch.ops.fm_search import find_anchors_fm
 from blasr_tpu_torch.ops.gather import gather_rows, gather_spans
 from blasr_tpu_torch.ops.mapqv import map_qv_reference
 from blasr_tpu_torch.ops.traceback_device import (
@@ -65,16 +68,21 @@ _U32 = 0xFFFFFFFF
 
 
 class DeviceIndex(NamedTuple):
-    """Genome index resident in device memory (direct-table SA kind)."""
+    """Genome index resident in device memory: the direct-table SA kind or
+    the FM kind."""
 
     genome_pad: torch.Tensor  # (N,) int32: 8 nibble-packed codes per word
                               # (LSB first), out-of-genome = 5, N % 128 == 0
-    arrays: tuple             # (sa_valid, ctab16, lut_full, lut_valid)
+    arrays: tuple             # "sa": (sa_valid, ctab16, lut_full, lut_valid);
+                              # "fm": (bwt_rows, occ_bins, C, ssa_mask,
+                              # ssa_base, ssa_vals, pos_ok)
     starts: torch.Tensor      # (C+1 padded to a multiple of 8,) int32
     pad: int
     k: int
     genome_len: int
     lut_meta: tuple | None = (0, 0)  # max_steps == 0 marks the direct table
+    kind: str = "sa"
+    fm_n: int = 0             # FM total rows (G + 1) when kind == "fm"
 
 
 def _pad_starts(starts: np.ndarray) -> np.ndarray:
@@ -137,35 +145,63 @@ def _direct_tables(idx: GenomeIndex, device) -> tuple:
     return sa_valid, ctab16, lut_full, lut_valid
 
 
+def _fm_arrays(fm, idx: GenomeIndex, device) -> tuple:
+    """The seven FM arrays on the device with the JAX package's casts (C
+    and the sampled SA values int32); the uint32 sample mask as int64
+    words (``ops/fm_search``)."""
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return (
+        dev(fm.bwt_rows),
+        dev(fm.occ_bins),
+        dev(fm.C.astype(np.int32)),
+        dev(fm.ssa_mask.astype(np.int64)),
+        dev(fm.ssa_base),
+        dev(fm.ssa_vals.astype(np.int32)),
+        dev(idx.pos_ok),
+    )
+
+
 def make_device_index(
-    idx: GenomeIndex, params: MappingParams, device: str | torch.device
+    idx: GenomeIndex, params: MappingParams, device: str | torch.device, fm=None
 ) -> DeviceIndex:
-    """Upload ``idx`` as the direct-table device index (cached per index
-    object, padding and device)."""
+    """Upload ``idx`` as the direct-table device index, or with ``fm`` (an
+    ``index.fm.FMIndex``) as the FM device index, which needs only the
+    genome, its seed-validity mask and contig bounds of ``idx``. Cached per
+    index object, padding, device and fm; the entry pins the fm it was
+    built from, so a recycled ``id()`` never aliases a live entry."""
     device = torch.device(device)
-    if 2 * idx.k > 28:
-        raise NotImplementedError(
-            f"k={idx.k}: only the direct 4^k table (k <= 14) is ported"
-        )
-    if params.direct_lut is False:
-        raise NotImplementedError("the bisection index (direct_lut=False) is not ported")
-    key = (params.max_read_len + params.target_len, str(device))
+    if fm is None:
+        if 2 * idx.k > 28:
+            raise NotImplementedError(
+                f"k={idx.k}: only the direct 4^k table (k <= 14) is ported"
+            )
+        if params.direct_lut is False:
+            raise NotImplementedError("the bisection index (direct_lut=False) is not ported")
+    key = (params.max_read_len + params.target_len, str(device),
+           id(fm) if fm is not None else None)
     cache = getattr(idx, "_torch_device_index_cache", None)
     if cache is None:
         cache = {}
         idx._torch_device_index_cache = cache
-    if key in cache:
-        return cache[key]
+    hit = cache.get(key)
+    if hit is not None and hit[0] is fm:
+        return hit[1]
     words, pad = packed_genome_words(idx, params)
-    di = DeviceIndex(
+    common = dict(
         genome_pad=torch.from_numpy(words).to(device),
-        arrays=_direct_tables(idx, device),
         starts=torch.from_numpy(_pad_starts(idx.seqdb.starts)).to(device),
         pad=pad,
         k=idx.k,
         genome_len=idx.genome_length,
     )
-    cache[key] = di
+    if fm is not None:
+        di = DeviceIndex(arrays=_fm_arrays(fm, idx, device), lut_meta=None, kind="fm",
+                         fm_n=int(fm.n), **common)
+    else:
+        di = DeviceIndex(arrays=_direct_tables(idx, device), **common)
+    cache[key] = (fm, di)
     return di
 
 
@@ -374,16 +410,25 @@ def map_batch_impl(
         qual2 = torch.cat([qual, _reverse_qual_rows(qual, lengths)], dim=0)
 
     # ---- anchoring ----
-    sa_valid, ctab16, lut_full, lut_valid = di.arrays
-    at, aq, anh, avalid = find_anchors(
-        reads2, lens2, sa_valid, lut_full, lut_valid, ctab16,
-        k=k,
-        max_hits_per_pos=params.max_anchors_per_position,
-        max_anchors_per_read=params.max_anchors_per_read,
-        lut_meta=di.lut_meta,
-        anchor_stride=params.anchor_stride,
-        expand=params.min_expand,
-    )
+    if di.kind == "fm":
+        at, aq, anh, avalid = find_anchors_fm(
+            reads2, lens2, *di.arrays,
+            k=k, n=di.fm_n,
+            max_hits_per_pos=params.max_anchors_per_position,
+            max_anchors_per_read=params.max_anchors_per_read,
+            anchor_stride=params.anchor_stride,
+        )
+    else:
+        sa_valid, ctab16, lut_full, lut_valid = di.arrays
+        at, aq, anh, avalid = find_anchors(
+            reads2, lens2, sa_valid, lut_full, lut_valid, ctab16,
+            k=k,
+            max_hits_per_pos=params.max_anchors_per_position,
+            max_anchors_per_read=params.max_anchors_per_read,
+            lut_meta=di.lut_meta,
+            anchor_stride=params.anchor_stride,
+            expand=params.min_expand,
+        )
 
     mark("anchors")
 
@@ -681,6 +726,7 @@ class Mapper:
     _: dataclasses.KW_ONLY
     device: str | torch.device
     clock: StageClock | None = None  # per-stage timing (measurement runs)
+    fm: object = None                # an index.fm.FMIndex: the -bwt anchoring path
 
     def __post_init__(self):
         self.params.validate()
@@ -691,7 +737,7 @@ class Mapper:
             )
         if self.params.ndevices != 1:
             raise NotImplementedError("multi-device mapping is not ported yet")
-        self.device_index = make_device_index(self.index, self.params, self.device)
+        self.device_index = make_device_index(self.index, self.params, self.device, fm=self.fm)
 
     def map_batch(
         self, codes: np.ndarray, lengths: np.ndarray, qual: np.ndarray | None = None

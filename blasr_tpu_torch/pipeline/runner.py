@@ -152,16 +152,19 @@ def run_mapping(
     device: str | torch.device,
     metrics: MappingMetrics | None = None,
     clock: StageClock | None = None,
+    fm=None,
 ) -> tuple[list[AlignmentRecord], list[str]]:
     """Map reads on ``device``; returns (alignments, unmapped read names).
 
     ``metrics``, when given, receives the run's counters and timers;
     ``clock`` a per-stage split of the device work (it synchronises after
-    every stage, so use it only in a measurement run)."""
+    every stage, so use it only in a measurement run); ``fm`` (an
+    ``index.fm.FMIndex``) anchors by FM backward search (``-bwt``), and
+    ``index`` may then hold no suffix array."""
     _check_supported(params, reads)
     met = metrics if metrics is not None else MappingMetrics()
     t_run0 = time.time()
-    mapper = Mapper(index, params, device=device, clock=clock)
+    mapper = Mapper(index, params, device=device, clock=clock, fm=fm)
     out: list[AlignmentRecord] = []
     unmapped: list[str] = []
     if params.min_read_length > 0 or params.min_avg_qual > 0:
@@ -230,7 +233,7 @@ def run_mapping(
             )
             sub = MappingMetrics()
             r2, _ = run_mapping(
-                index, retry_reads, esc, device=device, metrics=sub, clock=clock
+                index, retry_reads, esc, device=device, metrics=sub, clock=clock, fm=fm
             )
             met.escalated_reads += len(retry_reads)
             for f in ("dispatch_seconds", "wait_seconds", "finalize_seconds", "total_dp_cells",
@@ -334,20 +337,23 @@ def _admit_secondary(
     # interval-formation gate (StoreLargestIntervals minSize: SumAnchors
     # over a readLen*(1+indelRate) window holding the cluster must EXCEED
     # minInterval, FindMaxInterval.h:479); the anchor list of a (row,
-    # strand) is built once per batch, from the host's suffix array
-    L_int = int(n_b * (1 + params.indel_rate))
-    ws_lo = max(min(t_lo0, t_hi0 - L_int), c_lo)
-    ws_hi = min(max(t_hi0, t_lo0 + L_int), c_hi)
-    akey = (b, st)
-    if akey not in anchor_cache:
-        anchor_cache[akey] = reference_anchor_list(
-            qc, genome, index.sa, index.sa_kmers, index.k,
-            min_match=params.min_match_length,
-        )
-    _aq, at_r, al_r = anchor_cache[akey]
-    if sum_anchors_window(at_r, al_r, ws_lo, ws_hi) <= params.min_interval:
-        met.secondary_gated += 1
-        return None
+    # strand) is built once per batch, from the host's suffix array.
+    # FM-only indexes (-bwt) hold no suffix array and skip the gate, as the
+    # JAX runner does
+    if len(index.sa):
+        L_int = int(n_b * (1 + params.indel_rate))
+        ws_lo = max(min(t_lo0, t_hi0 - L_int), c_lo)
+        ws_hi = min(max(t_hi0, t_lo0 + L_int), c_hi)
+        akey = (b, st)
+        if akey not in anchor_cache:
+            anchor_cache[akey] = reference_anchor_list(
+                qc, genome, index.sa, index.sa_kmers, index.k,
+                min_match=params.min_match_length,
+            )
+        _aq, at_r, al_r = anchor_cache[akey]
+        if sum_anchors_window(at_r, al_r, ws_lo, ws_hi) <= params.min_interval:
+            met.secondary_gated += 1
+            return None
     # PASS 2, the reference's aligned interval: chain corners stretched by
     # approximateMaxInsertionRate=1.3 times the unaligned read prefix and
     # suffix (Blasr.cpp:1247-1263), full SDPAlign (Local, detailed,

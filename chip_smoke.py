@@ -72,9 +72,21 @@ Phases, each of which must pass:
      (tools/jax_sam_reference.json config2, the header too; with --out
      the card's text lands in sam_config2.sam), accuracy equal to phase
      5's, the single-quality DP at W = 32 and W = 256, and the lines read
-     back through read_sam from SAM text and from BAM.
+     back through read_sam from SAM text and from BAM;
+ 11. config 4, -bwt -m 4, on the FASTA corpus (bench.config4_params: B=64,
+     anchored through the FM index; the suffix-array cells' device tables
+     are freed first): the FM index built from the genome (build seconds,
+     the device bytes of its arrays), warm-up, two timed runs, the
+     per-stage clock; every timed run's -m 4 lines equal to the JAX
+     package's read by read (tools/jax_fm_reference.json) and accuracy
+     equal to its figure; peak device memory; the FM anchors of the
+     widest batch on the card equal to the CPU's, and their time on the
+     card; the CLI with -bwt on phase 4's 256 reads twice (the first run
+     builds and saves the bundle, the second loads it), each printing
+     run_mapping's lines.
 The line before the last is a JSON object with each kernel's launches
-(each on its own path: the single-quality DP and the gathers on config 2),
+(each on its own path: the single-quality DP and the gathers on config 2;
+K1, K2 and K3 also on config 4's first timed run, ``launches_config4``),
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and the exit code is not 0. Needs one CUDA card.
 """
@@ -123,9 +135,12 @@ M5_REFERENCE = os.path.join(HERE, "tools", "jax_m5_reference.json")
 # the same for the SAM lines of config 2 (CLR FASTQ, -sam -clipping soft) and
 # of config 3 (tools/jax_sam_reference.py)
 SAM_REFERENCE = os.path.join(HERE, "tools", "jax_sam_reference.json")
+# the same for config 4's -m 4 lines on the FASTA corpus (tools/jax_fm_reference.py)
+FM_REFERENCE = os.path.join(HERE, "tools", "jax_fm_reference.json")
 RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0, "config3": 0,
-                     "config2": 0, "config3_sam": 0}
-RECORD_FORMAT = {"fasta": "m4", "clr": "m4", "clr_guided": "m4", "config3": "m5"}
+                     "config2": 0, "config3_sam": 0, "config4": 0}
+RECORD_FORMAT = {"fasta": "m4", "clr": "m4", "clr_guided": "m4", "config3": "m5",
+                 "config4": "m4"}
 # H100 SXM peaks: HBM 3.35 TB/s; INT32 ALU 132 SMs x 64 lanes x 1.98 GHz
 # (Hopper architecture white paper), the rate of the DP's integer work
 HBM_BYTES_PER_S = 3.35e12
@@ -801,7 +816,7 @@ def check_cli_sam_output(sam: str, genome_fa: str, reads, index) -> dict:
 
 
 def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
-               formatter=None, sam_movie: str | None = None) -> dict:
+               formatter=None, sam_movie: str | None = None, fm=None) -> dict:
     """One warm-up run (unless ``warmup`` is False), then ``n_timed`` timed
     runs (every launch counter reset just before the first, read just after
     it), then one run with the per-stage clock. Each timed run's records
@@ -810,7 +825,7 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
     with ``write_sam`` (soft clipping, the genome, that movie name) into a
     StringIO, timed in the same window after the mapping's own wall
     (``sam_walls_s``, the write alone ``sam_write_s``), and keeps the SAM
-    text's lines."""
+    text's lines. ``fm`` anchors every run through that FM index."""
     import io
 
     import torch
@@ -826,7 +841,7 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
     warm_s = 0.0
     if warmup:
         t0 = time.time()
-        run_mapping(index, reads, params, device="cuda")
+        run_mapping(index, reads, params, device="cuda", fm=fm)
         torch.cuda.synchronize()
         warm_s = time.time() - t0
     walls, line_runs = [], []
@@ -837,7 +852,7 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
             reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        recs, unm = run_mapping(index, reads, params, device="cuda", metrics=met)
+        recs, unm = run_mapping(index, reads, params, device="cuda", metrics=met, fm=fm)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
         if sam_movie is not None:
@@ -857,7 +872,7 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
             records, unmapped, met0 = recs, unm, met
     clock = StageClock(torch.device("cuda"))
     t0 = time.time()
-    run_mapping(index, reads, params, device="cuda", clock=clock)
+    run_mapping(index, reads, params, device="cuda", clock=clock, fm=fm)
     clocked_s = time.time() - t0
     stage = dict(clock.seconds)
     total_stage = sum(stage.values())
@@ -892,10 +907,11 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
 def load_references() -> dict:
     """The JAX package's per-read digests: -m 4 on the three corpora
     (tools/jax_m4_reference.py), config 3's -m 5 on the FASTA corpus
-    (tools/jax_m5_reference.py) and the SAM lines of configs 2 and 3
-    (tools/jax_sam_reference.py), all written on the CPU."""
+    (tools/jax_m5_reference.py), the SAM lines of configs 2 and 3
+    (tools/jax_sam_reference.py) and config 4's -m 4 on the FASTA corpus
+    (tools/jax_fm_reference.py), all written on the CPU."""
     refs = {}
-    for path in (M4_REFERENCE, M5_REFERENCE, SAM_REFERENCE):
+    for path in (M4_REFERENCE, M5_REFERENCE, SAM_REFERENCE, FM_REFERENCE):
         with open(path) as f:
             refs.update(json.load(f))
     return refs
@@ -1309,6 +1325,131 @@ def check_config2(reads_fq: str, clr_reads, index, refs: dict, out_dir, fastq: d
     return res
 
 
+def check_config4(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_dir,
+                  cli: dict) -> dict:
+    """Config 4 (-bwt -m 4) on the FASTA corpus at bench.config4_params,
+    with the suffix-array cells' device tables freed first: the FM index
+    built from the genome as the CLI builds it (the port's SA-IS and
+    build_fm_index; seconds, and the device bytes of the seven FM arrays),
+    then warm-up, two timed runs and the per-stage clock through
+    run_mapping on a genome-only index; every timed run's -m 4 lines
+    against the JAX package's read by read and accuracy equal to its
+    figure; every kernel launched. Then find_anchors_fm on the widest batch
+    of the corpus as the mapper calls it (both strands, 2B rows) on the
+    card and on the CPU, all four outputs equal, and its time on the card;
+    then the CLI with -bwt on phase 4's 256 reads twice (the bundle built
+    and saved, then loaded), each printing run_mapping's lines."""
+    import numpy as np
+    import torch
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.index.artifacts import GenomeIndex, build_pos_ok
+    from blasr_tpu_torch.index.fm import build_fm_index
+    from blasr_tpu_torch.index.suffix_array import build_suffix_array
+    from blasr_tpu_torch.io.batching import batch_reads
+    from blasr_tpu_torch.ops.fm_search import find_anchors_fm
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.pipeline.mapper import _revcomp_rows, make_device_index
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    params = bench.config4_params()
+    # the SA cells' direct tables (2.5 GiB) go: this cell's memory is its own
+    getattr(index, "_torch_device_index_cache", {}).clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.time()
+    sa = build_suffix_array(index.genome)
+    sa_s = time.time() - t0
+    fm = build_fm_index(index.genome, sa)
+    fm_s = time.time() - t0
+    del sa
+    empty = np.zeros(0, np.int32)
+    findex = GenomeIndex(index.genome, empty, empty,
+                         build_pos_ok(index.genome, index.seqdb, params.min_match_length),
+                         params.min_match_length, index.seqdb)
+    t0 = time.time()
+    di = make_device_index(findex, params, "cuda", fm=fm)
+    torch.cuda.synchronize()
+    up_s = time.time() - t0
+    fm_bytes = sum(a.numel() * a.element_size() for a in di.arrays)
+    log(f"config 4 (-bwt -m 4, B={params.batch_size}) on the FASTA corpus: FM index built in "
+        f"{fm_s:.1f} s (suffix array {sa_s:.1f} s), n = {fm.n}; its seven device arrays "
+        f"{fm_bytes / 2**20:.1f} MiB, the packed genome {di.genome_pad.numel() * 4 / 2**20:.1f} "
+        f"MiB, uploaded in {up_s:.2f} s; {resident / 2**20:.1f} MiB allocated before it")
+    res = map_corpus(findex, reads, params, n_timed=2, fm=fm)
+    res["records_vs_jax"] = check_records("config4", res, refs, reads_fa, out_dir)
+    ref = refs["config4"]
+    acc = res["accuracy_true_locus"]
+    if acc != ref["accuracy_true_locus"]:
+        raise AssertionError(f"config 4 accuracy_true_locus {acc:.4f}, the JAX package's "
+                             f"{ref['accuracy_true_locus']:.4f}")
+    missing = [k for k, v in res["launches"].items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the config 4 path: {missing}")
+
+    # the FM anchors of the widest batch, card against CPU
+    batch = max(batch_reads(reads, params.batch_size, params.max_read_len),
+                key=lambda b: b.codes.shape[1])
+    codes = torch.from_numpy(batch.codes).cuda()
+    lengths = torch.from_numpy(batch.lengths.astype(np.int32)).cuda()
+    reads2 = torch.cat([codes, _revcomp_rows(codes, lengths)]).contiguous()
+    lens2 = torch.cat([lengths, lengths])
+    kw = dict(k=di.k, n=di.fm_n, max_hits_per_pos=params.max_anchors_per_position,
+              max_anchors_per_read=params.max_anchors_per_read,
+              anchor_stride=params.anchor_stride)
+
+    def anchors():
+        return find_anchors_fm(reads2, lens2, *di.arrays, **kw)
+
+    gpu = [x.cpu() for x in anchors()]
+    t0 = time.time()
+    cpu = find_anchors_fm(reads2.cpu(), lens2.cpu(), *(a.cpu() for a in di.arrays), **kw)
+    cpu_s = time.time() - t0
+    for name, a, b in zip(("t", "q", "nhits", "valid"), cpu, gpu):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"find_anchors_fm's {name} on the card differs from the CPU's")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    anchor_ms = cuda_ms(anchors, reps=5)
+    anchor_peak = torch.cuda.max_memory_allocated() - before
+    log(f"  find_anchors_fm on {tuple(reads2.shape)} (both strands, the widest batch): the "
+        f"card's t, q, nhits, valid equal the CPU's ({int(gpu[3].sum())} valid anchors; CPU "
+        f"{cpu_s:.2f} s); {anchor_ms:.3f} ms a call on the card, working set "
+        f"{anchor_peak / 2**20:.0f} MiB")
+
+    # the CLI: build and save the bundle, then load it
+    bundle = os.path.join(bench.BENCH_DIR, "genome_cli.btfm.npz")
+    if os.path.exists(bundle):
+        os.remove(bundle)
+    extra = ["-bwt", bundle]
+    sub = reads[: cli["reads"]]
+    recs, _ = run_mapping(findex, sub, cli_params(cli["path"], genome_fa, extra),
+                          device="cuda", fm=fm)
+    want = [format_m4(r) for r in recs]
+    runs = []
+    for tag in ("built", "loaded"):
+        existed = os.path.exists(bundle)
+        lines, metrics, secs = run_cli(cli["path"], genome_fa, f"reads_cli_bwt_{tag}", extra)
+        if existed != (tag == "loaded") or not os.path.exists(bundle):
+            raise AssertionError(f"-bwt {bundle}: the bundle was not {tag} as expected")
+        if lines != want:
+            raise AssertionError(f"CLI -bwt ({tag} bundle) output differs from run_mapping: "
+                                 f"{sum(a != b for a, b in zip(lines, want))} of {len(want)} "
+                                 f"lines, {len(lines)} printed")
+        runs.append({"bundle": tag, "lines": len(lines), "seconds": secs,
+                     "index_seconds": metrics["indexLoadSeconds"],
+                     "launches": metrics["kernelLaunches"]})
+        log(f"  CLI -bwt ({tag} bundle) on {len(sub)} FASTA reads -> {len(lines)} m4 lines in "
+            f"{secs:.1f} s (process included; index {metrics['indexLoadSeconds']:.2f} s), "
+            f"equal to run_mapping; launches {metrics['kernelLaunches']}")
+    res.update(fm_build_s=fm_s, sa_build_s=sa_s, fm_upload_s=up_s, fm_device_bytes=fm_bytes,
+               resident_before_bytes=resident, anchors_batch_shape=list(reads2.shape),
+               anchors_ms=anchor_ms, anchors_working_bytes=anchor_peak,
+               anchors_cpu_s=cpu_s, cli=runs)
+    return res
+
+
 def run(out_path: str | None) -> int:
     import torch
 
@@ -1432,6 +1573,9 @@ def run(out_path: str | None) -> int:
     # ---- phase 10: config 2, -sam -clipping soft on the CLR FASTQ corpus ----
     config2 = check_config2(reads_fq, clr_reads, index, refs, out_dir, fastq)
 
+    # ---- phase 11: config 4, -bwt -m 4 on the FASTA corpus ----
+    config4 = check_config4(genome_fa, reads_fa, reads, index, refs, out_dir, cli)
+
     # ---- the kernels line ----
     def dp_row(mode):
         return next(r for r in dp_rows if (r["W"], r["L"], r["mode"]) == (*MAIN_DP_SHAPE, mode))
@@ -1451,6 +1595,7 @@ def run(out_path: str | None) -> int:
             "name": "banded_dp" if mode == "none" else f"banded_dp[qual={mode}]",
             "route": "cuda", "source": src, "replaces": replaces,
             "launches": dp_launches[mode],
+            **({"launches_config4": config4["launches"]["banded_dp"]} if mode == "none" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in dp_rows if r["mode"] == mode),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
@@ -1461,6 +1606,7 @@ def run(out_path: str | None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": config2["launches"][name],
+            "launches_config4": config4["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in g_rows[name]),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1489,7 +1635,7 @@ def run(out_path: str | None) -> int:
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
-    if any(k["launches"] <= 0 for k in kernels):
+    if any(k["launches"] <= 0 or k.get("launches_config4", 1) <= 0 for k in kernels):
         raise AssertionError(f"a kernel never ran on its path: {kernels}")
     log(f"total {time.time() - t_start:.0f} s")
     if out_path:
@@ -1502,7 +1648,7 @@ def run(out_path: str | None) -> int:
                 "micro_dma_launches": micro_launches,
                 "fasta": fasta, "cli": {k: v for k, v in cli.items() if k != "m4"},
                 "profile": prof, "fastq": fastq, "cli_sam": sam, "guided": guided,
-                "matrix": matrix, "config3": config3, "config2": config2,
+                "matrix": matrix, "config3": config3, "config2": config2, "config4": config4,
                 "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
                 "jax_guided_accuracy_cpu": JAX_GUIDED_ACCURACY,
                 "seconds": time.time() - t_start,

@@ -607,3 +607,39 @@ def test_sam_lines_on_the_card_equal_cpu(dev, best_n):
     assert out["cuda"] == out["cpu"]
     # best_n 1 escalates reads to the wide band; best_n 2 emits secondaries
     assert out["cpu"][1 if best_n == 1 else 2] > 0
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+def test_fm_anchors_on_the_card_equal_cpu(dev, stride):
+    """FM backward search, locate and anchor selection: the card's four
+    outputs equal the CPU's (integers, tolerance 0), on a genome with an N
+    run whose n = G + 1 is a multiple of the 128-byte rank row."""
+    from blasr_tpu_torch.index.fm import build_fm_index
+    from blasr_tpu_torch.index.suffix_array import build_suffix_array
+    from blasr_tpu_torch.ops.fm_search import find_anchors_fm
+
+    rng = np.random.default_rng(stride)
+    G = 128 * 400 - 1
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    genome[9_000:9_040] = 4
+    genome[30_000:31_000] = genome[2_000:3_000]          # a repeat
+    fm = build_fm_index(genome, build_suffix_array(genome))
+    B, L = 16, 1024
+    codes = np.full((B, L), 4, np.uint8)
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    for b in range(B):
+        s = int(rng.integers(0, G - L))
+        codes[b, : lengths[b]] = genome[s : s + lengths[b]]
+    arrays = (fm.bwt_rows, fm.occ_bins, fm.C.astype(np.int32), fm.ssa_mask.astype(np.int64),
+              fm.ssa_base, fm.ssa_vals.astype(np.int32), rng.random(G) > 0.05)
+    kw = dict(k=14, n=fm.n, max_hits_per_pos=8, max_anchors_per_read=128,
+              anchor_stride=stride)
+
+    def run(device):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (codes, lengths, *arrays)]
+        return [x.cpu() for x in find_anchors_fm(*t, **kw)]
+
+    cpu, gpu = run("cpu"), run(dev)
+    for a, b in zip(cpu, gpu):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(cpu[3].sum()) > 500

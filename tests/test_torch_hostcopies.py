@@ -3,8 +3,8 @@ originals, and the C++ host helpers against their plain versions.
 
 The port imports nothing of ``blasr_tpu``; these tests hold each copy it
 keeps (params, sim, io, index, cli flags, native, the secondary admission,
-the verbose and SAM writers and BAM) equal to the module it was copied
-from, on the same inputs or, for the three copied whole, line for line."""
+the verbose and SAM writers, BAM, the FM index and the reference .bwt
+reader) equal to the module it was copied from, on the same inputs or, for the three copied whole, line for line."""
 
 import ast
 import dataclasses
@@ -19,13 +19,15 @@ from blasr_tpu import params as jparams
 from blasr_tpu import sim as jsim
 from blasr_tpu.cli import blasr as jcli
 from blasr_tpu.index import artifacts as jart
+from blasr_tpu.index import bwtfile as jbwt
+from blasr_tpu.index import fm as jfm
 from blasr_tpu.index import suffix_array as jsa
 from blasr_tpu.io import batching as jbat
 from blasr_tpu.io import seqdb as jseqdb
 from blasr_tpu_torch import native, params, sim
 from blasr_tpu_torch.cli import args as targs
 from blasr_tpu_torch.core import encode
-from blasr_tpu_torch.index import artifacts, suffix_array
+from blasr_tpu_torch.index import artifacts, bwtfile, fm, suffix_array
 from blasr_tpu_torch.io import batching, seqdb
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -278,3 +280,66 @@ def test_sam_writer_copy_equals_jax():
     assert len(same) == 6
     for name in same:
         assert tf[name] == jf[name], name
+
+
+FM_FIELDS = ("bwt_rows", "occ_bins", "C", "ssa_mask", "ssa_base", "ssa_vals")
+
+
+@pytest.mark.parametrize("G", [1023, 5000])
+def test_fm_index_build_and_host_queries_equal_jax(G):
+    """``index/fm.py``: the arrays of ``build_fm_index`` (a genome with N
+    bases; G = 1023 makes n a multiple of the 128-byte row), and
+    ``count_host``/``locate_host`` on patterns and rows."""
+    rng = np.random.default_rng(G)
+    g = rng.integers(0, 4, G).astype(np.uint8)
+    g[rng.integers(0, G, G // 50)] = 4
+    sa = jsa.build_suffix_array(g)
+    j, t = jfm.build_fm_index(g, sa), fm.build_fm_index(g, sa)
+    assert (j.n, j.genome_length) == (t.n, t.genome_length) == (G + 1, G)
+    for f in FM_FIELDS:
+        a, b = getattr(j, f), getattr(t, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, f)
+    assert (fm.ROW, fm.SAMPLE_D, fm.SENTINEL) == (jfm.ROW, jfm.SAMPLE_D, jfm.SENTINEL)
+    for _ in range(40):
+        k = int(rng.integers(1, 12))
+        s0 = int(rng.integers(0, G - k))
+        p = g[s0 : s0 + k].copy()
+        assert fm.count_host(t, p) == jfm.count_host(j, p)
+        for c, i in ((int(p[0]), s0), (4, G + 1), (5, 0)):
+            assert fm.occ_host(t, c, i) == jfm.occ_host(j, c, i)
+    for r in [0, G] + rng.integers(0, G + 1, 60).tolist():
+        assert fm.locate_host(t, r) == jfm.locate_host(j, r)
+
+
+def test_fm_bundle_loads_across_packages(tmp_path):
+    """A ``.btfm.npz`` written by either package loads in the other with
+    the same arrays and keys."""
+    rng = np.random.default_rng(2)
+    g = rng.integers(0, 5, 3000).astype(np.uint8)
+    j = jfm.build_fm_index(g, jsa.build_suffix_array(g))
+    t = fm.build_fm_index(g, suffix_array.build_suffix_array(g))
+    j.save(str(tmp_path / "jax.btfm.npz"))
+    t.save(str(tmp_path / "port.btfm.npz"))
+    a, b = np.load(tmp_path / "jax.btfm.npz"), np.load(tmp_path / "port.btfm.npz")
+    assert sorted(a.files) == sorted(b.files)
+    for loaded, orig in ((fm.FMIndex.load(str(tmp_path / "jax.btfm.npz")), j),
+                         (jfm.FMIndex.load(str(tmp_path / "port.btfm.npz")), t)):
+        assert loaded.n == orig.n
+        for f in FM_FIELDS:
+            x, y = getattr(loaded, f), getattr(orig, f)
+            assert x.dtype == y.dtype, f
+            np.testing.assert_array_equal(x, y, f)
+
+
+def test_ref_bwt_reader_equal_jax():
+    """``index/bwtfile.py`` on the reference's sa2bwt output in tests/data."""
+    data = os.path.join(REPO, "tests", "data")
+    path = os.path.join(data, "ref_golden.bwt")
+    a, b = jbwt.read_ref_bwt(path), bwtfile.read_ref_bwt(path)
+    assert a.dtype == b.dtype
+    np.testing.assert_array_equal(a, b)
+    z = np.load(os.path.join(data, "ref_golden_genome.npz"))
+    for contigs in ([("c1", z["c1"]), ("c2", z["c2"])], [("c1", z["c1"])]):
+        assert bwtfile.ref_bwt_genome_matches(b, contigs) == jbwt.ref_bwt_genome_matches(a, contigs)
+    assert bwtfile.ref_bwt_genome_matches(b, [("c1", z["c1"]), ("c2", z["c2"])])

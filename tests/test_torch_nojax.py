@@ -2,8 +2,9 @@
 ``blasr_tpu`` package blocked import blasr_tpu_torch and map FASTA and
 FASTQ reads end to end on the CPU to -m 4 lines, through the library and
 through the CLI (also with ``-useGuidedAlign -scoreMatrix``, to -m 5
-lines with ``-bestn 2``, and to SAM and BAM with ``-sam``), and no file of
-the port imports either package."""
+lines with ``-bestn 2``, to SAM and BAM with ``-sam``, and anchored through
+the FM index with ``-bwt``, its bundle built and then loaded), and no file
+of the port imports either package."""
 
 import io
 import json
@@ -136,6 +137,9 @@ def cli_outputs(tmp_path_factory):
                 f"-samqv InsertionQV")
     runs.append(f"{tmp_path / 'r.sam'},{tmp_path / 'sam_soft.m4'},-sam")
     runs.append(f"{tmp_path / 'r.sam'},{tmp_path / 'bam.bam'},-sam")
+    # -bwt: the first run builds and saves the FM bundle, the second loads it
+    for run in ("bwt_built", "bwt_loaded"):
+        runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / f'{run}.m4'},-bwt {tmp_path / 'g.btfm.npz'}")
     proc = subprocess.run(
         [sys.executable, "-c", CLI_SCRIPT, str(tmp_path / "g.fa"),
          "-m", "4", "-header", "-device", "cpu", "-minMatch", "10",
@@ -146,9 +150,11 @@ def cli_outputs(tmp_path_factory):
     from blasr_tpu_torch.io.bam import read_bam
 
     header, recs = read_bam(str(tmp_path / "bam.bam"))
+    assert (tmp_path / "g.btfm.npz").exists()
     return {"bam": header + ["\t".join(r) for r in recs],
             **{run: (tmp_path / f"{run}.m4").read_text().splitlines()
-               for run in (*CLI_FORMATS, "guided_matrix", "bestn2_m5", "sam_hard", "sam_soft")}}
+               for run in (*CLI_FORMATS, "guided_matrix", "bestn2_m5", "sam_hard", "sam_soft",
+                           "bwt_built", "bwt_loaded")}}
 
 
 def test_cli_writes_m4_with_jax_blocked(cli_outputs):
@@ -166,6 +172,13 @@ def test_cli_maps_guided_with_a_matrix_with_blasr_tpu_blocked(cli_outputs):
     _check_cli_lines(cli_outputs["guided_matrix"])
     # the matrix scores the same alignments otherwise
     assert cli_outputs["guided_matrix"] != cli_outputs["fasta"]
+
+
+def test_cli_maps_bwt_with_jax_blocked(cli_outputs):
+    """-bwt: FM anchors find the suffix array's alignments on these reads;
+    the loaded bundle maps as the one just built."""
+    _check_cli_lines(cli_outputs["bwt_built"])
+    assert cli_outputs["bwt_built"] == cli_outputs["bwt_loaded"] == cli_outputs["fasta"]
 
 
 def test_cli_writes_bestn2_m5_with_jax_blocked(cli_outputs):
@@ -215,7 +228,7 @@ def _check_cli_lines(lines):
 def test_cli_names_unsupported_options():
     from blasr_tpu_torch.cli.blasr import main
 
-    for argv, name in ((["-resume"], "-resume"), (["-bwt"], "-bwt"),
+    for argv, name in ((["-resume"], "-resume"), (["-sa", "g.sa"], "-sa"),
                        (["-useSensitiveSearch"], "-useSensitiveSearch"),
                        (["-placeRepeatsRandomly"], "-placeRepeatsRandomly"),
                        (["-start", "3"], "-start"),
