@@ -115,6 +115,18 @@ def config4_params() -> MappingParams:
     return bench_params(batch_size=64, best_n=1, emit_moves=False)
 
 
+def k15_params() -> MappingParams:
+    """The bench operating point with 15-base seeds: 2k = 30 > 28, so the
+    suffix-array index takes bisection although ``direct_lut`` is set."""
+    return bench_params(min_match_length=15)
+
+
+def k18_params() -> MappingParams:
+    """The bench operating point with 18-base seeds: the wide-key index
+    (keys split into a top-30-bit and a 6-bit half)."""
+    return bench_params(min_match_length=18)
+
+
 def true_locus_windows(genome, reads, L: int, pad2: int = 128):
     """The DP inputs of simulated reads at their true loci, as the mapper
     places them: each read's forward-strand codes cut to ``L`` (N-padded),

@@ -29,6 +29,12 @@ array's direct tables (the reference's low-memory mode): FILE is a
 ``.btfm.npz`` bundle that is loaded, or built from the genome and saved
 there when missing (default ``<genome>.btfm.npz``), or a reference binary
 ``.bwt``, checked against the genome FASTA.
+``-sa FILE`` builds the index around a reference-format suffix array (as
+``sawriter`` writes it) instead of building one (``-bwt`` wins when both
+are given). ``-minMatch`` takes seeds of 1 to 30 bases: up to 14 on a
+genome of 1 Mb or more through the direct 4^k tables, else by bisection
+over the sorted keys, and above 15 over keys split in two halves;
+``-nucmer`` sets the seed to 30 bases and ``-maxScore`` to at most -200.
 ``-device`` defaults to ``cuda`` and never falls back to the CPU.
 """
 
@@ -54,7 +60,7 @@ SUPPORTED = {
     "affineOpen", "affineExtend", "pvaltype", "indelRate",
     "ignoreQualities", "minAvgQual", "useGuidedAlign", "scoreMatrix",
     "sam", "clipping", "samqv", "unaligned", "noPrintUnalignedSeqs", "titleTable",
-    "bwt",
+    "bwt", "sa", "nucmer",
 }
 FM_SUFFIX = ".btfm.npz"   # the FM bundle beside the genome (the JAX package's name)
 
@@ -135,7 +141,7 @@ def main(argv=None) -> int:
     params.validate()
 
     from blasr_tpu_torch.core.encode import codes_to_seq
-    from blasr_tpu_torch.index.artifacts import load_index
+    from blasr_tpu_torch.index.artifacts import build_index_from_sa, load_index
     from blasr_tpu_torch.io.bam import write_bam_from_sam_lines
     from blasr_tpu_torch.io.batching import read_records
     from blasr_tpu_torch.ops import dp_launch_counts, launch_counts
@@ -148,6 +154,10 @@ def main(argv=None) -> int:
     fm = None
     if args.bwt is not None:
         index, fm = load_fm_index(args.genome, args.bwt, params.min_match_length)
+    elif args.sa is not None:
+        # reference-format .sa input (SuffixArray.h:505 layout): reuse the
+        # precomputed array, derive the device-side artifacts from it
+        index = build_index_from_sa(args.genome, args.sa, k=params.min_match_length)
     else:
         index = load_index(args.genome, k=params.min_match_length)
     t_index = time.time() - t_start

@@ -35,6 +35,9 @@ INDEX_SUFFIX = ".btidx.npz"
 INDEX_VERSION = 1
 
 
+LUT_BITS = 22  # key-prefix lookup table width (role of the reference SA
+               # prefix lookup table, SuffixArray.h:193 BuildLookupTable)
+
 @dataclasses.dataclass
 class GenomeIndex:
     genome: np.ndarray     # uint8 [G]
@@ -43,6 +46,22 @@ class GenomeIndex:
     pos_ok: np.ndarray     # bool [G]
     k: int                 # k-mer length of sa_kmers
     seqdb: SeqDB
+
+    def lut(self) -> tuple[np.ndarray, int, int]:
+        """(lut, shift, max_steps): lut[p] = first SA row whose key prefix
+        >= p; shift maps DEVICE keys to prefixes (for wide keys the device
+        holds the top-30-bit half, so the shift is within that half);
+        max_steps bounds the remaining in-bucket binary search."""
+        wide = 2 * self.k > 31
+        hi_bits = 30 if wide else 2 * self.k
+        bits = min(LUT_BITS, hi_bits)
+        host_shift = 2 * self.k - bits
+        pref = (self.sa_kmers.astype(np.int64) >> host_shift)
+        lut = np.searchsorted(pref, np.arange((1 << bits) + 1)).astype(np.int32)
+        biggest = int(np.max(np.diff(lut))) if len(lut) > 1 else len(pref)
+        max_steps = max(1, int(np.ceil(np.log2(biggest + 1))))
+        shift = hi_bits - bits   # applied to the device-side (hi) keys
+        return lut, shift, max_steps
 
     @property
     def genome_length(self) -> int:
@@ -104,15 +123,47 @@ def build_index(genome_path: str, k: int = 14) -> GenomeIndex:
     return build_index_from_arrays(genome, seqdb, k)
 
 
+def build_index_from_sa(genome_path: str, sa_path: str, k: int = 14) -> GenomeIndex:
+    """Build the device bundle around a precomputed reference-format ``.sa``
+    file (blasr ``-sa`` flag role, Blasr.cpp:4375-4449 index discovery)."""
+    from blasr_tpu_torch.index.safile import read_sa_file
+
+    genome, seqdb = load_genome(genome_path)
+    sa = read_sa_file(sa_path, genome_len=len(genome))
+    if len(sa) != len(genome):
+        raise ValueError(
+            f"{sa_path}: suffix array length {len(sa)} != genome {len(genome)}"
+        )
+    keys, _ = pack_kmers(genome, k)
+    kv = keys[sa]
+    if np.any(np.diff(kv) < 0):
+        # reference order interleaves short suffixes (its end-of-string
+        # sorts LARGEST, safile.reference_order_sa); the pipeline only
+        # needs ascending k-keys, so stable-resort those ties
+        order = np.argsort(kv, kind="stable")
+        sa = sa[order]
+        kv = kv[order]
+        if np.any(np.diff(kv) < 0):
+            raise ValueError(
+                f"{sa_path}: array is not a suffix order of {genome_path}"
+            )
+    sa_kmers = kv.astype(np.int32 if 2 * k <= 31 else np.int64)
+    pos_ok = build_pos_ok(genome, seqdb, k)
+    if len(sa) < 2**31:
+        sa = sa.astype(np.int32)
+    return GenomeIndex(genome.astype(np.uint8), sa, sa_kmers, pos_ok, k, seqdb)
+
+
 def load_index(genome_path: str, k: int = 14, cache: bool = True) -> GenomeIndex:
     """Load (or build and cache) the index for a genome FASTA.
 
     The reference's index auto-discovery (Blasr.cpp:4375-4449) also takes
-    a ``.bwt`` or ``.sa`` file beside the genome; the port builds the
-    suffix array from the FASTA itself (``.sa`` input: ROADMAP queue 1
-    item 12; ``.bwt`` and FM bundles go through the CLI's ``-bwt``, which
-    builds a genome-only index with an empty ``sa`` and ``sa_kmers``). The
-    cache file is the JAX package's format.
+    a ``.bwt`` or ``.sa`` file beside the genome; here the suffix array is
+    built from the FASTA itself. A reference-format ``.sa`` goes through
+    ``build_index_from_sa`` (the CLI's ``-sa``); ``.bwt`` and FM bundles
+    through the CLI's ``-bwt``, which builds a genome-only index with an
+    empty ``sa`` and ``sa_kmers``. The cache file is the JAX package's
+    format.
     """
     idx_path = genome_path + INDEX_SUFFIX
     if cache and os.path.exists(idx_path) and os.path.getmtime(idx_path) >= os.path.getmtime(genome_path):

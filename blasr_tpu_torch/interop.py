@@ -27,11 +27,16 @@ def device_index_from_numpy(
     device: str | torch.device = "cpu",
 ) -> DeviceIndex:
     """The port's DeviceIndex from the numpy images of a JAX DeviceIndex of
-    the direct-table kind, ``arrays = (sa_valid, ctab16, lut_full,
-    lut_valid)`` (``ctab16``, uint16, moves as its bit pattern in int16),
-    or of the FM kind (``kind="fm"``, ``fm_n`` rows), ``arrays =
-    (bwt_rows, occ_bins, C, ssa_mask, ssa_base, ssa_vals, pos_ok)`` (the
-    uint32 ``ssa_mask`` moves as int64 words holding its values)."""
+    the suffix-array kind (``kind="sa"``), whose array set the JAX package
+    tells apart by ``k`` and ``lut_meta``, as the port's "wide", "direct"
+    or "bisect" kind: wide keys (k > 15), ``arrays = (sa_masked, kmer_hi,
+    kmer_lo, lut)``; the direct tables (``lut_meta == (0, 0)``),
+    ``(sa_valid, ctab16, lut_full, lut_valid)`` (``ctab16``, uint16, moves
+    as its bit pattern in int16); else bisection, ``(sa_masked, sa_kmers,
+    lut, run_len)``; all int32 but ctab16. Or of the FM
+    kind (``kind="fm"``, ``fm_n`` rows), ``arrays = (bwt_rows, occ_bins,
+    C, ssa_mask, ssa_base, ssa_vals, pos_ok)`` (the uint32 ``ssa_mask``
+    moves as int64 words holding its values)."""
 
     def dev(a: np.ndarray, dtype) -> torch.Tensor:
         # a private writable copy: numpy views of device arrays are read-only
@@ -59,18 +64,15 @@ def device_index_from_numpy(
             ),
             lut_meta=None, kind="fm", fm_n=int(fm_n), **common,
         )
-    if kind != "sa" or lut_meta is None or tuple(lut_meta)[1] != 0:
-        raise NotImplementedError(
-            "only the direct-table suffix-array index and the FM index are ported"
-        )
-    sa_valid, ctab16, lut_full, lut_valid = (np.asarray(a) for a in arrays)
-    return DeviceIndex(
-        arrays=(
-            dev(sa_valid, np.int32),
-            dev(ctab16, np.int16),
-            dev(lut_full, np.int32),
-            dev(lut_valid, np.int32),
-        ),
-        lut_meta=tuple(lut_meta),
-        **common,
-    )
+    if kind != "sa" or lut_meta is None:
+        raise ValueError(f"unknown device index kind {kind!r} (lut_meta {lut_meta})")
+    arrays = tuple(np.asarray(a) for a in arrays)
+    lut_meta = tuple(int(v) for v in lut_meta)
+    sa_kind = "wide" if k > 15 else ("direct" if lut_meta[1] == 0 else "bisect")
+    if sa_kind == "direct":
+        sa_valid, ctab16, lut_full, lut_valid = arrays
+        arrays = (dev(sa_valid, np.int32), dev(ctab16, np.int16),
+                  dev(lut_full, np.int32), dev(lut_valid, np.int32))
+    else:
+        arrays = tuple(dev(a.astype(np.int32, copy=False), np.int32) for a in arrays)
+    return DeviceIndex(arrays=arrays, lut_meta=lut_meta, kind=sa_kind, **common)

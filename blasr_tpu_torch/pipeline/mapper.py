@@ -1,14 +1,16 @@
 """Per-batch mapping step on the device.
 
-Port of ``blasr_tpu.pipeline.mapper`` for the suffix-array index with the
-direct 4^k tables and for the FM-index (``-bwt``), with or without quality
+Port of ``blasr_tpu.pipeline.mapper`` for the suffix-array index (the
+direct 4^k tables, bisection, or wide keys for k 16-30) and for the
+FM-index (``-bwt``), with or without quality
 values, with or without guided bands (``-useGuidedAlign``) and a score
 matrix (``-scoreMatrix``). One batch of padded reads goes through, in
 order:
 
   1. reverse complements appended -> (2B, L) strand-expanded batch (and
      the quality rows reversed, when the batch carries them)
-  2. anchors through the direct count tables          (ops/anchors.py)
+  2. anchors through the direct count tables, by bisection over the
+     sorted keys, or over the wide keys' two halves    (ops/anchors.py)
      or by FM backward search and locate              (ops/fm_search.py)
   3. candidate windows per read-strand                 (ops/candidates.py)
   4. chain evidence, admission, the top CD windows per read across strands
@@ -34,7 +36,12 @@ import numpy as np
 import torch
 
 from blasr_tpu_torch.index.artifacts import GenomeIndex
-from blasr_tpu_torch.ops.anchors import find_anchors, topk_desc
+from blasr_tpu_torch.ops.anchors import (
+    find_anchors,
+    find_anchors_bisect,
+    find_anchors_wide,
+    topk_desc,
+)
 from blasr_tpu_torch.ops.banded_align import (
     QOFF_NUM_HALF,
     QOFF_SHIFT,
@@ -68,20 +75,28 @@ _U32 = 0xFFFFFFFF
 
 
 class DeviceIndex(NamedTuple):
-    """Genome index resident in device memory: the direct-table SA kind or
-    the FM kind."""
+    """Genome index resident in device memory: one of the three
+    suffix-array kinds ("wide", "direct", "bisect"; ``_sa_kind`` chooses)
+    or the FM kind ("fm"). ``map_batch_impl`` dispatches on ``kind``."""
 
     genome_pad: torch.Tensor  # (N,) int32: 8 nibble-packed codes per word
                               # (LSB first), out-of-genome = 5, N % 128 == 0
-    arrays: tuple             # "sa": (sa_valid, ctab16, lut_full, lut_valid);
+    arrays: tuple             # all int32 but ctab16:
+                              #   "wide": (sa_masked, kmer_hi, kmer_lo,
+                              #     lut);
+                              #   "direct": (sa_valid, ctab16, lut_full,
+                              #     lut_valid);
+                              #   "bisect": (sa_masked, sa_kmers, lut,
+                              #     run_len);
                               # "fm": (bwt_rows, occ_bins, C, ssa_mask,
                               # ssa_base, ssa_vals, pos_ok)
     starts: torch.Tensor      # (C+1 padded to a multiple of 8,) int32
     pad: int
     k: int
     genome_len: int
-    lut_meta: tuple | None = (0, 0)  # max_steps == 0 marks the direct table
-    kind: str = "sa"
+    kind: str                 # "wide", "direct", "bisect" or "fm"
+    lut_meta: tuple | None = (0, 0)  # (shift, max_steps) of the prefix
+                              # table; (0, 0) for the direct tables
     fm_n: int = 0             # FM total rows (G + 1) when kind == "fm"
 
 
@@ -116,14 +131,12 @@ def packed_genome_words(idx: GenomeIndex, params: MappingParams) -> tuple[np.nda
     return gnib_p.view(np.int32), pad
 
 
-def _direct_tables(idx: GenomeIndex, device) -> tuple:
+def _direct_tables(idx: GenomeIndex, sa_masked: np.ndarray, device) -> tuple:
     """(sa_valid, ctab16, lut_full, lut_valid) built on the device: scatter
     counts, int32 prefix sums, the seed-valid compacted SA. ``ctab16``
     holds the uint16 table's bits in an int16 tensor."""
     nk = 1 << (2 * idx.k)
     G = idx.genome_length
-    sa32 = idx.sa.astype(np.int32)
-    sa_masked = np.where(idx.pos_ok[sa32], sa32, np.int32(-1))
     sk = torch.from_numpy(np.ascontiguousarray(idx.sa_kmers)).to(device).long()
     sa_m = torch.from_numpy(sa_masked).to(device)
     valid = sa_m >= 0
@@ -143,6 +156,50 @@ def _direct_tables(idx: GenomeIndex, device) -> tuple:
     counts_v.clamp_(max=255)
     ctab16 = ((counts << 8) | counts_v).to(torch.int16)
     return sa_valid, ctab16, lut_full, lut_valid
+
+
+def run_lengths(sa_kmers: np.ndarray) -> np.ndarray:
+    """(G,) int32: the number of equal keys from each SA row on, so the
+    bisection index finds an interval's width in one gather instead of a
+    second search."""
+    change = np.flatnonzero(np.diff(sa_kmers) != 0) + 1
+    bounds = np.concatenate([[0], change, [len(sa_kmers)]])
+    next_bound = np.repeat(bounds[1:], np.diff(bounds))
+    return (next_bound - np.arange(len(sa_kmers))).astype(np.int32)
+
+
+def _sa_kind(idx: GenomeIndex, direct_lut: bool | None) -> str:
+    """The suffix-array index kind, in the JAX package's order of choice:
+    "wide" keys when 2k > 31; else "direct" 4^k tables when ``direct_lut``
+    is set (None: when 2k <= 28 and the genome has at least 2^20 bases) and
+    2k <= 28; else "bisect"."""
+    if 2 * idx.k > 31:
+        return "wide"
+    direct = direct_lut
+    if direct is None:
+        direct = 2 * idx.k <= 28 and idx.genome_length >= (1 << 20)
+    return "direct" if direct and 2 * idx.k <= 28 else "bisect"
+
+
+def _sa_arrays(idx: GenomeIndex, kind: str, device) -> tuple:
+    """(arrays, lut_meta) of the suffix-array index of ``kind``; the
+    suffix array carries -1 where a position cannot seed."""
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    sa32 = idx.sa.astype(np.int32)
+    sa_masked = np.where(idx.pos_ok[sa32], sa32, np.int32(-1))
+    if kind == "direct":
+        return _direct_tables(idx, sa_masked, device), (0, 0)
+    lut, shift, max_steps = idx.lut()
+    if kind == "wide":
+        full = idx.sa_kmers.astype(np.int64)
+        lo_bits = 2 * idx.k - 30
+        kmer_hi = (full >> lo_bits).astype(np.int32)
+        kmer_lo = (full & ((1 << lo_bits) - 1)).astype(np.int32)
+        return (dev(sa_masked), dev(kmer_hi), dev(kmer_lo), dev(lut)), (shift, max_steps)
+    arrays = (dev(sa_masked), dev(idx.sa_kmers), dev(lut), dev(run_lengths(idx.sa_kmers)))
+    return arrays, (shift, max_steps)
 
 
 def _fm_arrays(fm, idx: GenomeIndex, device) -> tuple:
@@ -166,20 +223,18 @@ def _fm_arrays(fm, idx: GenomeIndex, device) -> tuple:
 def make_device_index(
     idx: GenomeIndex, params: MappingParams, device: str | torch.device, fm=None
 ) -> DeviceIndex:
-    """Upload ``idx`` as the direct-table device index, or with ``fm`` (an
-    ``index.fm.FMIndex``) as the FM device index, which needs only the
-    genome, its seed-validity mask and contig bounds of ``idx``. Cached per
-    index object, padding, device and fm; the entry pins the fm it was
-    built from, so a recycled ``id()`` never aliases a live entry."""
+    """Upload ``idx`` as the suffix-array device index (``_sa_kind`` picks
+    its kind from k, ``params.direct_lut`` and the genome length), or with
+    ``fm`` (an ``index.fm.FMIndex``) as the FM device index, which needs
+    only the genome, its seed-validity mask and contig bounds of ``idx``.
+    Cached per index object, padding, device, index kind and fm: the kind
+    that ``direct_lut`` resolves to, so settings that build the same
+    tables share one copy and settings that build others never alias it.
+    The entry pins the fm it was built from, so a recycled ``id()`` never
+    aliases a live entry."""
     device = torch.device(device)
-    if fm is None:
-        if 2 * idx.k > 28:
-            raise NotImplementedError(
-                f"k={idx.k}: only the direct 4^k table (k <= 14) is ported"
-            )
-        if params.direct_lut is False:
-            raise NotImplementedError("the bisection index (direct_lut=False) is not ported")
-    key = (params.max_read_len + params.target_len, str(device),
+    kind = _sa_kind(idx, params.direct_lut) if fm is None else "fm"
+    key = (params.max_read_len + params.target_len, str(device), kind,
            id(fm) if fm is not None else None)
     cache = getattr(idx, "_torch_device_index_cache", None)
     if cache is None:
@@ -200,7 +255,8 @@ def make_device_index(
         di = DeviceIndex(arrays=_fm_arrays(fm, idx, device), lut_meta=None, kind="fm",
                          fm_n=int(fm.n), **common)
     else:
-        di = DeviceIndex(arrays=_direct_tables(idx, device), **common)
+        arrays, lut_meta = _sa_arrays(idx, kind, device)
+        di = DeviceIndex(arrays=arrays, lut_meta=lut_meta, kind=kind, **common)
     cache[key] = (fm, di)
     return di
 
@@ -419,16 +475,17 @@ def map_batch_impl(
             anchor_stride=params.anchor_stride,
         )
     else:
-        sa_valid, ctab16, lut_full, lut_valid = di.arrays
-        at, aq, anh, avalid = find_anchors(
-            reads2, lens2, sa_valid, lut_full, lut_valid, ctab16,
-            k=k,
-            max_hits_per_pos=params.max_anchors_per_position,
-            max_anchors_per_read=params.max_anchors_per_read,
-            lut_meta=di.lut_meta,
-            anchor_stride=params.anchor_stride,
-            expand=params.min_expand,
-        )
+        kw = dict(k=k, max_hits_per_pos=params.max_anchors_per_position,
+                  max_anchors_per_read=params.max_anchors_per_read, lut_meta=di.lut_meta,
+                  anchor_stride=params.anchor_stride, expand=params.min_expand)
+        if di.kind == "wide":
+            at, aq, anh, avalid = find_anchors_wide(reads2, lens2, *di.arrays, **kw)
+        elif di.kind == "direct":
+            sa_valid, ctab16, lut_full, lut_valid = di.arrays
+            at, aq, anh, avalid = find_anchors(
+                reads2, lens2, sa_valid, lut_full, lut_valid, ctab16, **kw)
+        else:
+            at, aq, anh, avalid = find_anchors_bisect(reads2, lens2, *di.arrays, **kw)
 
     mark("anchors")
 

@@ -83,10 +83,25 @@ Phases, each of which must pass:
      widest batch on the card equal to the CPU's, and their time on the
      card; the CLI with -bwt on phase 4's 256 reads twice (the first run
      builds and saves the bundle, the second loads it), each printing
-     run_mapping's lines.
+     run_mapping's lines;
+ 12. seeds of k = 15 and k = 18 on the FASTA corpus (bench.k15_params,
+     bench.k18_params): each index built by build_index_from_arrays (seconds,
+     the device bytes of its arrays), its kind asserted (bisection at k =
+     15 although direct_lut is set, wide keys at k = 18); warm-up, one
+     timed run, the per-stage clock; the timed run's -m 4 lines equal to
+     the JAX package's read by read (tools/jax_sa_reference.json) and
+     accuracy equal to its figure; peak device memory; the anchors of the
+     widest batch on the card equal to the CPU's, and their time on the
+     card; then the CLI on phase 4's 256 reads with -minMatch 18 -sa
+     benchdata/genome.sa (written here by write_sa_file of
+     reference_order_sa) prints the lines of run_mapping on
+     build_index_from_sa of that file, and with -nucmer the lines of
+     run_mapping on a k = 30 index at the parameters params_from_args
+     gives.
 The line before the last is a JSON object with each kernel's launches
 (each on its own path: the single-quality DP and the gathers on config 2;
-K1, K2 and K3 also on config 4's first timed run, ``launches_config4``),
+K1, K2 and K3 also on config 4's first timed run, ``launches_config4``,
+and on phase 12's timed run, ``launches_k15`` and ``launches_k18``),
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and the exit code is not 0. Needs one CUDA card.
 """
@@ -137,10 +152,12 @@ M5_REFERENCE = os.path.join(HERE, "tools", "jax_m5_reference.json")
 SAM_REFERENCE = os.path.join(HERE, "tools", "jax_sam_reference.json")
 # the same for config 4's -m 4 lines on the FASTA corpus (tools/jax_fm_reference.py)
 FM_REFERENCE = os.path.join(HERE, "tools", "jax_fm_reference.json")
+# the same for seeds of k = 15 and k = 18 on the FASTA corpus (tools/jax_sa_reference.py)
+SA_REFERENCE = os.path.join(HERE, "tools", "jax_sa_reference.json")
 RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0, "config3": 0,
-                     "config2": 0, "config3_sam": 0, "config4": 0}
+                     "config2": 0, "config3_sam": 0, "config4": 0, "k15": 0, "k18": 0}
 RECORD_FORMAT = {"fasta": "m4", "clr": "m4", "clr_guided": "m4", "config3": "m5",
-                 "config4": "m4"}
+                 "config4": "m4", "k15": "m4", "k18": "m4"}
 # H100 SXM peaks: HBM 3.35 TB/s; INT32 ALU 132 SMs x 64 lanes x 1.98 GHz
 # (Hopper architecture white paper), the rate of the DP's integer work
 HBM_BYTES_PER_S = 3.35e12
@@ -908,10 +925,11 @@ def load_references() -> dict:
     """The JAX package's per-read digests: -m 4 on the three corpora
     (tools/jax_m4_reference.py), config 3's -m 5 on the FASTA corpus
     (tools/jax_m5_reference.py), the SAM lines of configs 2 and 3
-    (tools/jax_sam_reference.py) and config 4's -m 4 on the FASTA corpus
-    (tools/jax_fm_reference.py), all written on the CPU."""
+    (tools/jax_sam_reference.py), config 4's -m 4 on the FASTA corpus
+    (tools/jax_fm_reference.py) and -m 4 with seeds of k = 15 and 18
+    (tools/jax_sa_reference.py), all written on the CPU."""
     refs = {}
-    for path in (M4_REFERENCE, M5_REFERENCE, SAM_REFERENCE, FM_REFERENCE):
+    for path in (M4_REFERENCE, M5_REFERENCE, SAM_REFERENCE, FM_REFERENCE, SA_REFERENCE):
         with open(path) as f:
             refs.update(json.load(f))
     return refs
@@ -1450,6 +1468,153 @@ def check_config4(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_d
     return res
 
 
+def check_sa_seeds(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_dir,
+                   cli: dict) -> dict:
+    """Seeds of k = 15 and k = 18 on the FASTA corpus (bench.k15_params,
+    bench.k18_params). For each k: the index built by the port's
+    build_index_from_arrays (seconds) and uploaded by make_device_index
+    (seconds, the device bytes of its four arrays), its kind asserted
+    (bisection at k = 15 although direct_lut is set, wide keys at k = 18);
+    warm-up, one timed run and the per-stage clock through run_mapping; the
+    timed run's -m 4 lines against the JAX package's read by read and
+    accuracy equal to its figure; every kernel launched; then the anchor
+    search on the widest batch of the corpus as the mapper calls it (both
+    strands) on the card and on the CPU, all four outputs equal, and its
+    time on the card. The index is freed before the next k. Then the CLI
+    on phase 4's 256 reads with -minMatch 18 -sa FILE (FILE written here
+    by write_sa_file of reference_order_sa) prints the lines of
+    run_mapping on build_index_from_sa of FILE, and with -nucmer the lines
+    of run_mapping on a k = 30 index at the CLI's parameters."""
+    import numpy as np
+    import torch
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.index.artifacts import (
+        LUT_BITS, build_index_from_arrays, build_index_from_sa)
+    from blasr_tpu_torch.index.safile import reference_order_sa, write_sa_file
+    from blasr_tpu_torch.io.batching import batch_reads
+    from blasr_tpu_torch.ops.anchors import find_anchors_bisect, find_anchors_wide
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.pipeline.mapper import _revcomp_rows, make_device_index
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    out = {}
+    for cell, params, kind in (("k15", bench.k15_params(), "bisect"),
+                               ("k18", bench.k18_params(), "wide")):
+        k = params.min_match_length
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.time()
+        sidx = build_index_from_arrays(index.genome, index.seqdb, k)
+        build_s = time.time() - t0
+        t0 = time.time()
+        di = make_device_index(sidx, params, "cuda")
+        torch.cuda.synchronize()
+        up_s = time.time() - t0
+        # the kind make_device_index recorded, and the arrays it built: three
+        # of G rows and the 2^22 + 1 prefix table, which is the last array of
+        # the wide set and the third of the bisection set (run_len last)
+        names = {"wide": ("sa_masked", "kmer_hi", "kmer_lo", "lut"),
+                 "bisect": ("sa_masked", "sa_kmers", "lut", "run_len")}.get(di.kind)
+        rows = [a.numel() for a in di.arrays]
+        at = names.index("lut") if names else 0
+        if (not params.direct_lut or names is None or di.kind != kind or di.lut_meta[1] <= 0
+                or rows[at] != (1 << LUT_BITS) + 1
+                or rows[:at] + rows[at + 1:] != [sidx.genome_length] * 3):
+            raise AssertionError(f"k={k} took the {di.kind} index (lut_meta {di.lut_meta}, "
+                                 f"array rows {rows}), not {kind}")
+        array_bytes = {n: a.numel() * a.element_size() for n, a in zip(names, di.arrays)}
+        log(f"k={k} ({kind} index, direct_lut={params.direct_lut}) on the FASTA corpus: index "
+            f"built in {build_s:.2f} s, uploaded in {up_s:.2f} s (lut_meta {di.lut_meta}); "
+            f"device arrays {array_bytes} = {sum(array_bytes.values()) / 2**20:.1f} MiB; "
+            f"{resident / 2**20:.1f} MiB allocated before it")
+        res = map_corpus(sidx, reads, params, n_timed=1)
+        res["records_vs_jax"] = check_records(cell, res, refs, reads_fa, out_dir)
+        ref = refs[cell]
+        if res["accuracy_true_locus"] != ref["accuracy_true_locus"]:
+            raise AssertionError(f"k={k} accuracy_true_locus {res['accuracy_true_locus']:.4f}, "
+                                 f"the JAX package's {ref['accuracy_true_locus']:.4f}")
+        missing = [n for n, v in res["launches"].items() if v <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the k={k} path: {missing}")
+
+        # the anchors of the widest batch, card against CPU
+        batch = max(batch_reads(reads, params.batch_size, params.max_read_len),
+                    key=lambda b: b.codes.shape[1])
+        codes = torch.from_numpy(batch.codes).cuda()
+        lengths = torch.from_numpy(batch.lengths.astype(np.int32)).cuda()
+        reads2 = torch.cat([codes, _revcomp_rows(codes, lengths)]).contiguous()
+        lens2 = torch.cat([lengths, lengths])
+        search = find_anchors_wide if di.kind == "wide" else find_anchors_bisect
+        kw = dict(k=k, max_hits_per_pos=params.max_anchors_per_position,
+                  max_anchors_per_read=params.max_anchors_per_read, lut_meta=di.lut_meta,
+                  anchor_stride=params.anchor_stride, expand=params.min_expand)
+
+        def anchors():
+            return search(reads2, lens2, *di.arrays, **kw)
+
+        gpu = [x.cpu() for x in anchors()]
+        t0 = time.time()
+        cpu = search(reads2.cpu(), lens2.cpu(), *(a.cpu() for a in di.arrays), **kw)
+        cpu_s = time.time() - t0
+        for name, a, b in zip(("t", "q", "nhits", "valid"), cpu, gpu):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"{search.__name__}'s {name} on the card differs from the "
+                                     f"CPU's (k={k})")
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        anchor_ms = cuda_ms(anchors, reps=5)
+        anchor_peak = torch.cuda.max_memory_allocated() - before
+        log(f"  {search.__name__} on {tuple(reads2.shape)} (both strands, the widest batch): "
+            f"the card's t, q, nhits, valid equal the CPU's ({int(gpu[3].sum())} valid "
+            f"anchors; CPU {cpu_s:.2f} s); {anchor_ms:.3f} ms a call on the card, working set "
+            f"{anchor_peak / 2**20:.0f} MiB")
+        res.update(kind=kind, lut_meta=list(di.lut_meta), index_build_s=build_s,
+                   upload_s=up_s, array_bytes=array_bytes, resident_before_bytes=resident,
+                   anchors_batch_shape=list(reads2.shape), anchors_ms=anchor_ms,
+                   anchors_working_bytes=anchor_peak, anchors_cpu_s=cpu_s)
+        out[cell] = res
+        del di, sidx, gpu, codes, lengths, reads2, lens2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the CLI: -minMatch 18 -sa FILE, then -nucmer
+    sub = reads[: cli["reads"]]
+    sa_path = os.path.join(bench.BENCH_DIR, "genome.sa")
+    t0 = time.time()
+    write_sa_file(sa_path, reference_order_sa(index.genome))
+    sa_write_s = time.time() - t0
+    cli_runs = []
+    for tag, extra in (("sa", ["-minMatch", "18", "-sa", sa_path]), ("nucmer", ["-nucmer"])):
+        params = cli_params(cli["path"], genome_fa, extra)
+        if tag == "sa":
+            idx = build_index_from_sa(genome_fa, sa_path, k=params.min_match_length)
+        else:
+            idx = build_index_from_arrays(index.genome, index.seqdb, params.min_match_length)
+        if (tag, params.min_match_length) not in (("sa", 18), ("nucmer", 30)):
+            raise AssertionError(f"-{tag}: min_match_length {params.min_match_length}")
+        recs, _ = run_mapping(idx, sub, params, device="cuda")
+        want = [format_m4(r) for r in recs]
+        lines, metrics, secs = run_cli(cli["path"], genome_fa, f"reads_cli_{tag}", extra)
+        if lines != want:
+            raise AssertionError(f"CLI {' '.join(extra)} output differs from run_mapping: "
+                                 f"{sum(a != b for a, b in zip(lines, want))} of {len(want)} "
+                                 f"lines, {len(lines)} printed")
+        cli_runs.append({"flags": extra[:1] if tag == "nucmer" else extra[:3], "k":
+                         params.min_match_length, "max_score": params.max_score,
+                         "lines": len(lines), "seconds": secs,
+                         "index_seconds": metrics["indexLoadSeconds"],
+                         "launches": metrics["kernelLaunches"]})
+        log(f"  CLI {' '.join(extra)} on {len(sub)} FASTA reads (k = {params.min_match_length}, "
+            f"maxScore {params.max_score}) -> {len(lines)} m4 lines in {secs:.1f} s (process "
+            f"included; index {metrics['indexLoadSeconds']:.2f} s), equal to run_mapping; "
+            f"launches {metrics['kernelLaunches']}")
+        del idx
+    out.update(sa_write_s=sa_write_s, cli=cli_runs)
+    return out
+
+
 def run(out_path: str | None) -> int:
     import torch
 
@@ -1576,6 +1741,9 @@ def run(out_path: str | None) -> int:
     # ---- phase 11: config 4, -bwt -m 4 on the FASTA corpus ----
     config4 = check_config4(genome_fa, reads_fa, reads, index, refs, out_dir, cli)
 
+    # ---- phase 12: seeds of k = 15 and k = 18, -sa and -nucmer ----
+    sa_seeds = check_sa_seeds(genome_fa, reads_fa, reads, index, refs, out_dir, cli)
+
     # ---- the kernels line ----
     def dp_row(mode):
         return next(r for r in dp_rows if (r["W"], r["L"], r["mode"]) == (*MAIN_DP_SHAPE, mode))
@@ -1595,7 +1763,10 @@ def run(out_path: str | None) -> int:
             "name": "banded_dp" if mode == "none" else f"banded_dp[qual={mode}]",
             "route": "cuda", "source": src, "replaces": replaces,
             "launches": dp_launches[mode],
-            **({"launches_config4": config4["launches"]["banded_dp"]} if mode == "none" else {}),
+            **({"launches_config4": config4["launches"]["banded_dp"],
+                "launches_k15": sa_seeds["k15"]["launches"]["banded_dp"],
+                "launches_k18": sa_seeds["k18"]["launches"]["banded_dp"]}
+               if mode == "none" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in dp_rows if r["mode"] == mode),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
@@ -1607,6 +1778,8 @@ def run(out_path: str | None) -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": config2["launches"][name],
             "launches_config4": config4["launches"][name],
+            "launches_k15": sa_seeds["k15"]["launches"][name],
+            "launches_k18": sa_seeds["k18"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in g_rows[name]),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1635,7 +1808,8 @@ def run(out_path: str | None) -> int:
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
-    if any(k["launches"] <= 0 or k.get("launches_config4", 1) <= 0 for k in kernels):
+    if any(k["launches"] <= 0 or min(k.get(f"launches_{c}", 1) for c in ("config4", "k15", "k18"))
+           <= 0 for k in kernels):
         raise AssertionError(f"a kernel never ran on its path: {kernels}")
     log(f"total {time.time() - t_start:.0f} s")
     if out_path:
@@ -1649,6 +1823,7 @@ def run(out_path: str | None) -> int:
                 "fasta": fasta, "cli": {k: v for k, v in cli.items() if k != "m4"},
                 "profile": prof, "fastq": fastq, "cli_sam": sam, "guided": guided,
                 "matrix": matrix, "config3": config3, "config2": config2, "config4": config4,
+                "sa_seeds": sa_seeds,
                 "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
                 "jax_guided_accuracy_cpu": JAX_GUIDED_ACCURACY,
                 "seconds": time.time() - t_start,

@@ -643,3 +643,46 @@ def test_fm_anchors_on_the_card_equal_cpu(dev, stride):
     for a, b in zip(cpu, gpu):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert int(cpu[3].sum()) > 500
+
+
+@pytest.mark.parametrize("expand", [0, 1])
+@pytest.mark.parametrize("k", [15, 18])
+def test_sa_anchors_on_the_card_equal_cpu(dev, k, expand):
+    """The bisection (k = 15) and wide-key (k = 18) anchor searches: the
+    card's four outputs equal the CPU's (integers, tolerance 0), at the
+    bench stride, on a genome with an N run and a ten-copy repeat."""
+    from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+    from blasr_tpu_torch.io.seqdb import SeqDB
+    from blasr_tpu_torch.ops.anchors import find_anchors_bisect, find_anchors_wide
+    from blasr_tpu_torch.params import MappingParams
+    from blasr_tpu_torch.pipeline.mapper import make_device_index
+
+    rng = np.random.default_rng(k)
+    G = 200_000
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    genome[9_000:9_040] = 4
+    for j in range(10):
+        genome[50_000 + 700 * j : 50_000 + 700 * j + 600] = genome[2_000:2_600]
+    index = build_index_from_arrays(genome, SeqDB(["a", "b"], np.array([0, 120_000, G]),
+                                                  ["0" * 32] * 2), k)
+    params = MappingParams(max_read_len=1024, min_match_length=k, direct_lut=True)
+    B, L = 32, 1024
+    codes = np.full((B, L), 4, np.uint8)
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    for b in range(B):
+        s = 1_900 if b < 4 else int(rng.integers(0, G - L))
+        codes[b, : lengths[b]] = genome[s : s + lengths[b]]
+        codes[b, ::53] = rng.integers(0, 4)
+    def run(device):
+        di = make_device_index(index, params, device)
+        assert di.kind == ("wide" if k > 15 else "bisect") and di.lut_meta[1] > 0
+        search = find_anchors_wide if di.kind == "wide" else find_anchors_bisect
+        t = [torch.from_numpy(a).to(device) for a in (codes, lengths)]
+        return [x.cpu() for x in search(*t, *di.arrays, k=k, max_hits_per_pos=8,
+                                        max_anchors_per_read=128, lut_meta=di.lut_meta,
+                                        anchor_stride=4, expand=expand)]
+
+    cpu, gpu = run("cpu"), run(dev)
+    for a, b in zip(cpu, gpu):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(cpu[3].sum()) > 300

@@ -30,7 +30,7 @@ from blasr_tpu.pipeline import mapper as jmap
 from blasr_tpu.pipeline.runner import run_mapping as jax_run_mapping
 from blasr_tpu_torch.cli import blasr as tcli
 from blasr_tpu_torch.index import fm as tfm
-from blasr_tpu_torch.index.artifacts import GenomeIndex, build_pos_ok
+from blasr_tpu_torch.index.artifacts import GenomeIndex, build_index_from_arrays, build_pos_ok
 from blasr_tpu_torch.interop import device_index_from_numpy
 from blasr_tpu_torch.io.fasta import write_fasta
 from blasr_tpu_torch.io.seqdb import SeqDB
@@ -250,13 +250,16 @@ def test_fm_device_index_equals_jax_and_interop_maps_the_same(fm_corpus):
 
 
 def test_fm_device_index_takes_any_k_and_the_bisection_setting(fm_corpus):
-    """The SA branch's k <= 14 and direct_lut raises do not apply to FM."""
+    """The FM branch takes any k and any direct_lut; without fm the same
+    genome at k = 16 gets the suffix-array branch's wide-key index."""
     genome, fm, tindex, _, _ = fm_corpus
     idx16 = dataclasses.replace(tindex, k=16)
     di = tmap.make_device_index(idx16, dataclasses.replace(BASE, direct_lut=False), "cpu", fm=fm)
     assert di.kind == "fm" and di.k == 16
-    with pytest.raises(NotImplementedError):
-        tmap.make_device_index(idx16, BASE, "cpu")
+    sa16 = build_index_from_arrays(genome, tindex.seqdb, 16)
+    wide = tmap.make_device_index(sa16, BASE, "cpu")
+    assert wide.kind == "wide" and wide.k == 16 and wide.lut_meta[1] > 0
+    assert [a.shape[0] for a in wide.arrays[:3]] == [len(genome)] * 3
 
 
 @pytest.mark.parametrize("W", [32, 64])

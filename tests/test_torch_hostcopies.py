@@ -3,8 +3,10 @@ originals, and the C++ host helpers against their plain versions.
 
 The port imports nothing of ``blasr_tpu``; these tests hold each copy it
 keeps (params, sim, io, index, cli flags, native, the secondary admission,
-the verbose and SAM writers, BAM, the FM index and the reference .bwt
-reader) equal to the module it was copied from, on the same inputs or, for the three copied whole, line for line."""
+the verbose and SAM writers, BAM, the FM index, the reference .bwt
+reader, the reference .sa file, the prefix table and the index built
+around a .sa) equal to the module it was copied from, on the same inputs
+or, for the four copied whole, line for line."""
 
 import ast
 import dataclasses
@@ -228,6 +230,29 @@ def test_suffix_array_and_index_equal_jax(tmp_path):
     np.testing.assert_array_equal(tl.sa, jl.sa)
 
 
+def test_prefix_table_and_sa_input_equal_jax(tmp_path):
+    """``GenomeIndex.lut`` (narrow and wide keys) and ``build_index_from_sa``
+    on a reference-order ``.sa`` written by the JAX package."""
+    from blasr_tpu.index import safile as jsafile
+    from blasr_tpu.io.fasta import write_fasta
+
+    rng = np.random.default_rng(7)
+    genome = rng.integers(0, 4, 9_000).astype(np.uint8)
+    genome[4_000:4_600] = genome[1_000:1_600]
+    fa = str(tmp_path / "g.fa")
+    write_fasta(fa, [("a", genome[:5_000]), ("b", genome[5_000:])])
+    sa_path = str(tmp_path / "g.sa")
+    jsafile.write_sa_file(sa_path, jsafile.reference_order_sa(genome))
+    for k in (13, 20):
+        ji, ti = jart.build_index_from_sa(fa, sa_path, k), artifacts.build_index_from_sa(fa, sa_path, k)
+        for f in ("genome", "sa", "sa_kmers", "pos_ok"):
+            assert getattr(ji, f).dtype == getattr(ti, f).dtype, f
+            np.testing.assert_array_equal(getattr(ji, f), getattr(ti, f), f)
+        (jl, js, jm), (tl, ts, tm) = ji.lut(), ti.lut()
+        np.testing.assert_array_equal(jl, tl)
+        assert (js, jm) == (ts, tm) and jart.LUT_BITS == artifacts.LUT_BITS
+
+
 def test_native_helpers_equal_their_plain_versions():
     assert native.available()                    # built by g++, which the tests need
     rng = np.random.default_rng(8)
@@ -243,7 +268,7 @@ def test_native_helpers_equal_their_plain_versions():
 
 
 @pytest.mark.parametrize("module", ["pipeline/secondary_refine.py", "output/verbose.py",
-                                    "io/bam.py"])
+                                    "io/bam.py", "index/safile.py"])
 def test_whole_module_copies_equal_jax(module):
     """The copies made whole: the same code as the original once the
     port's package name reads as the JAX package's; only the module

@@ -2,9 +2,10 @@
 ``blasr_tpu`` package blocked import blasr_tpu_torch and map FASTA and
 FASTQ reads end to end on the CPU to -m 4 lines, through the library and
 through the CLI (also with ``-useGuidedAlign -scoreMatrix``, to -m 5
-lines with ``-bestn 2``, to SAM and BAM with ``-sam``, and anchored through
-the FM index with ``-bwt``, its bundle built and then loaded), and no file
-of the port imports either package."""
+lines with ``-bestn 2``, to SAM and BAM with ``-sam``, anchored through
+the FM index with ``-bwt``, its bundle built and then loaded, and with
+seeds of 18 bases from a reference-format ``.sa`` file and of 30 with
+``-nucmer``), and no file of the port imports either package."""
 
 import io
 import json
@@ -140,6 +141,12 @@ def cli_outputs(tmp_path_factory):
     # -bwt: the first run builds and saves the FM bundle, the second loads it
     for run in ("bwt_built", "bwt_loaded"):
         runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / f'{run}.m4'},-bwt {tmp_path / 'g.btfm.npz'}")
+    # seeds of 18 bases (wide keys) around the port's .sa file, and -nucmer (30)
+    from blasr_tpu_torch.index.safile import reference_order_sa, write_sa_file
+
+    write_sa_file(str(tmp_path / "g.sa"), reference_order_sa(genome))
+    runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'sa_k18.m4'},-minMatch 18 -sa {tmp_path / 'g.sa'}")
+    runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'nucmer.m4'},-nucmer")
     proc = subprocess.run(
         [sys.executable, "-c", CLI_SCRIPT, str(tmp_path / "g.fa"),
          "-m", "4", "-header", "-device", "cpu", "-minMatch", "10",
@@ -154,7 +161,7 @@ def cli_outputs(tmp_path_factory):
     return {"bam": header + ["\t".join(r) for r in recs],
             **{run: (tmp_path / f"{run}.m4").read_text().splitlines()
                for run in (*CLI_FORMATS, "guided_matrix", "bestn2_m5", "sam_hard", "sam_soft",
-                           "bwt_built", "bwt_loaded")}}
+                           "bwt_built", "bwt_loaded", "sa_k18", "nucmer")}}
 
 
 def test_cli_writes_m4_with_jax_blocked(cli_outputs):
@@ -179,6 +186,16 @@ def test_cli_maps_bwt_with_jax_blocked(cli_outputs):
     the loaded bundle maps as the one just built."""
     _check_cli_lines(cli_outputs["bwt_built"])
     assert cli_outputs["bwt_built"] == cli_outputs["bwt_loaded"] == cli_outputs["fasta"]
+
+
+@pytest.mark.parametrize("run", ["sa_k18", "nucmer"])
+def test_cli_maps_long_seeds_with_jax_blocked(cli_outputs, run):
+    """-minMatch 18 with a reference-format .sa (wide keys) and -nucmer
+    (30-base seeds, maxScore -200): the reads' alignments, on the spans
+    the k = 10 run reports."""
+    _check_cli_lines(cli_outputs[run])
+    spans = [ln.split()[5:12] for ln in cli_outputs["fasta"][1:]]
+    assert [ln.split()[5:12] for ln in cli_outputs[run][1:]] == spans
 
 
 def test_cli_writes_bestn2_m5_with_jax_blocked(cli_outputs):
@@ -228,7 +245,7 @@ def _check_cli_lines(lines):
 def test_cli_names_unsupported_options():
     from blasr_tpu_torch.cli.blasr import main
 
-    for argv, name in ((["-resume"], "-resume"), (["-sa", "g.sa"], "-sa"),
+    for argv, name in ((["-resume"], "-resume"), (["-subsample", "0.5"], "-subsample"),
                        (["-useSensitiveSearch"], "-useSensitiveSearch"),
                        (["-placeRepeatsRandomly"], "-placeRepeatsRandomly"),
                        (["-start", "3"], "-start"),
