@@ -15,6 +15,15 @@ on the same genome from the alchemy simulator under the published PacBio
 CLR error model (``sim.ErrorModel.published_clr``, seed 13): quality
 values around phred 10, low at error sites, and the insertion bursts that
 make the narrow band clip, so band escalation runs on the main path.
+
+The contig corpus (``ensure_contig_corpus``, the reference measurement's
+config 5, ``-alignContigs``) holds two contigs evolved from the bench
+genome's 100,000-1,300,000 and 2,000,000-2,800,000 (2% substitutions,
+0.5% insertions, 0.5% deletions; seeds 1 and 2). The long-read corpus
+(``ensure_long_corpus``) holds 300 simulated reads of mean length 8 kb
+(seed 17; 5-24 kb, named ``long/<i>|ref|...``), all above the bench's
+``max_read_len``, so ``run_mapping`` maps them piecewise, then the first
+100 reads of the FASTA corpus, which pass through whole.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_DIR = os.path.join(REPO, "benchdata")
 GENOME_FA = os.path.join(BENCH_DIR, "genome.fasta")
 READS_FA = os.path.join(BENCH_DIR, "reads.fasta")
+# config 5's contigs: (name, genome start, genome end, evolve_sequence seed)
+CONTIGS = (("ctg1", 100_000, 1_300_000, 1), ("ctg2", 2_000_000, 2_800_000, 2))
 
 
 def ensure_corpus(bench_dir: str = BENCH_DIR) -> tuple[str, str]:
@@ -60,6 +71,38 @@ def ensure_fastq_corpus(bench_dir: str = BENCH_DIR) -> str:
         reads, _ = simulate_reads_alchemy(g, ErrorModel.published_clr(), 2000, seed=13)
         write_fastq(reads_fq, [(r.name, r.codes, r.qual) for r in reads])
     return reads_fq
+
+
+def ensure_contig_corpus(bench_dir: str = BENCH_DIR) -> str:
+    """Write config 5's two evolved contigs beside the bench genome (once);
+    returns their path."""
+    from blasr_tpu_torch.io.fasta import read_fasta, write_fasta
+    from blasr_tpu_torch.sim import evolve_sequence
+
+    genome_fa, _ = ensure_corpus(bench_dir)
+    path = os.path.join(bench_dir, "contigs.fasta")
+    if not os.path.exists(path):
+        g = read_fasta(genome_fa)[0][1]
+        write_fasta(path, [(name, evolve_sequence(g[lo:hi], 0.02, 0.005, 0.005, seed=seed)[0])
+                           for name, lo, hi, seed in CONTIGS])
+    return path
+
+
+def ensure_long_corpus(bench_dir: str = BENCH_DIR) -> str:
+    """Write the long-read corpus beside the bench genome (once): 300
+    simulated reads of mean 8 kb, then the first 100 bench reads; returns
+    its path."""
+    from blasr_tpu_torch.io.fasta import read_fasta, write_fasta
+    from blasr_tpu_torch.sim import simulate_reads
+
+    genome_fa, reads_fa = ensure_corpus(bench_dir)
+    path = os.path.join(bench_dir, "reads_long.fasta")
+    if not os.path.exists(path):
+        g = read_fasta(genome_fa)[0][1]
+        long_reads, _ = simulate_reads(g, 300, mean_len=8000, seed=17)
+        write_fasta(path, [("long/" + r.name.split("/", 1)[1], r.codes) for r in long_reads]
+                    + read_fasta(reads_fa)[:100])
+    return path
 
 
 def load_bench_index(genome_fa: str = GENOME_FA, k: int = 14):
@@ -113,6 +156,14 @@ def config4_params() -> MappingParams:
     keeps the JAX package's batches, so a read has the same batch mates
     (its records depend on them)."""
     return bench_params(batch_size=64, best_n=1, emit_moves=False)
+
+
+def config5_params() -> MappingParams:
+    """The reference measurement's config 5 (``-alignContigs``,
+    ``BASELINE.md:27``): the bench operating point with piecewise mapping,
+    ``remove_contained`` and move strings on, as the CLI's preset sets
+    them; run through ``pipeline/piecewise.run_mapping_piecewise``."""
+    return bench_params(piecewise=True, remove_contained=True, emit_moves=True)
 
 
 def k15_params() -> MappingParams:

@@ -35,6 +35,11 @@ are given). ``-minMatch`` takes seeds of 1 to 30 bases: up to 14 on a
 genome of 1 Mb or more through the direct 4^k tables, else by bisection
 over the sorted keys, and above 15 over keys split in two halves;
 ``-nucmer`` sets the seed to 30 bases and ``-maxScore`` to at most -200.
+Reads longer than ``-maxReadLen`` are cut into segments, mapped, and
+stitched back into whole-read records; ``-alignContigs`` (``-piecewise``)
+maps every query above the segment length so, for multi-megabase contigs,
+with ``-removeContained`` and move strings on. ``-removeContained`` drops
+alignments whose read span lies inside a better one's.
 ``-device`` defaults to ``cuda`` and never falls back to the CPU.
 """
 
@@ -60,7 +65,7 @@ SUPPORTED = {
     "affineOpen", "affineExtend", "pvaltype", "indelRate",
     "ignoreQualities", "minAvgQual", "useGuidedAlign", "scoreMatrix",
     "sam", "clipping", "samqv", "unaligned", "noPrintUnalignedSeqs", "titleTable",
-    "bwt", "sa", "nucmer",
+    "bwt", "sa", "nucmer", "alignContigs", "removeContained",
 }
 FM_SUFFIX = ".btfm.npz"   # the FM bundle beside the genome (the JAX package's name)
 
@@ -148,6 +153,7 @@ def main(argv=None) -> int:
     from blasr_tpu_torch.output.m4 import write_m4
     from blasr_tpu_torch.output.sam_writer import write_sam
     from blasr_tpu_torch.output.verbose import write_verbose
+    from blasr_tpu_torch.pipeline.piecewise import run_mapping_piecewise
     from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
 
     t_start = time.time()
@@ -171,8 +177,8 @@ def main(argv=None) -> int:
         index.seqdb.names = [str(i) for i in range(len(index.seqdb.names))]
     met = MappingMetrics()
     t0 = time.time()
-    records, unmapped = run_mapping(index, reads, params, device=args.device, metrics=met,
-                                    fm=fm)
+    run = run_mapping_piecewise if params.piecewise else run_mapping
+    records, unmapped = run(index, reads, params, device=args.device, metrics=met, fm=fm)
     t_map = time.time() - t0
 
     def sam(out):

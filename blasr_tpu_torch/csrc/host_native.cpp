@@ -1,7 +1,8 @@
 // Host helpers of the port in C++: the suffix-array builder (SA-IS), the
-// FASTA byte-stream encoder, the move-string unpacker and the SAM record
+// FASTA byte-stream encoder, the move-string unpacker, the SAM record
 // fields (the =/X CIGAR of an op array, and CIGAR, SEQ and QUAL in one pass
-// over a packed move string). The port's copy of the functions of
+// over a packed move string) and the dense global aligner that fills the
+// gaps between stitched segments of a long query. The port's copy of the functions of
 // blasr_tpu/native/src/blasr_native.cpp that it calls; each has a plain
 // numpy version in blasr_tpu_torch/native.py that the tests hold it equal
 // to.
@@ -10,7 +11,8 @@
 // (common/algorithms/sorting/qsufsort.h, Karkkainen.h — here replaced by a
 // from-scratch SA-IS, the linear-time induced-sorting algorithm), FASTA
 // byte-stream encoding (common/FASTAReader.h buffered parse) and SAM CIGAR
-// emission (printers/SAMPrinter.h:120-260 CreateCIGAR).
+// emission (printers/SAMPrinter.h:120-260 CreateCIGAR), and the
+// inter-anchor dense fills (Blasr.cpp:1578-1634 AlignSubstring).
 //
 // Plain C ABI, loaded with ctypes; built with g++ by
 // blasr_tpu_torch/ops/_build.py. Index types are templated so genomes of
@@ -364,6 +366,70 @@ int64_t bn_sam_fields(const uint8_t* packed, int64_t nops, int64_t q_start,
   }
   lens_out[2] = p - qual0;
   return p - out;
+}
+
+// ---- dense global alignment with traceback (linear gaps, minimization).
+// Host-side gap filler for the SDP/piecewise path — the role of the
+// reference's inter-anchor AlignSubstring dense fills (Blasr.cpp:1578-1634,
+// SWAlign recursion in SDPAlign.h:437-521). Query/target are 0..4 codes.
+// Emits START->END ops (1=M 2=I 3=D) into ops_out (capacity qn+tn) and
+// returns nops; *score_out gets the global DP score. The caller bounds the
+// (qn+1)*(tn+1) matrix.
+int64_t bn_global_align(const uint8_t* q, int64_t qn, const uint8_t* t,
+                        int64_t tn, int32_t match, int32_t mismatch,
+                        int32_t nscore, int32_t ins, int32_t del,
+                        uint8_t* ops_out, int32_t* score_out) {
+  const int64_t W = tn + 1;
+  std::vector<int32_t> H((qn + 1) * W);
+  for (int64_t j = 0; j <= tn; j++) H[j] = static_cast<int32_t>(j) * del;
+  for (int64_t i = 1; i <= qn; i++) {
+    int32_t* row = &H[i * W];
+    const int32_t* prev = &H[(i - 1) * W];
+    row[0] = static_cast<int32_t>(i) * ins;
+    const uint8_t qc = q[i - 1];
+    for (int64_t j = 1; j <= tn; j++) {
+      const uint8_t tc = t[j - 1];
+      int32_t sub = (qc == tc && qc < 4) ? match
+                    : (qc >= 4 || tc >= 4) ? nscore
+                                           : mismatch;
+      int32_t best = prev[j - 1] + sub;
+      int32_t up = prev[j] + ins;
+      int32_t left = row[j - 1] + del;
+      if (up < best) best = up;
+      if (left < best) best = left;
+      row[j] = best;
+    }
+  }
+  *score_out = H[qn * W + tn];
+  // traceback (prefer diag, then up/ins, then left/del — reference KBand
+  // convention of favoring matches on ties)
+  int64_t i = qn, j = tn;
+  std::vector<uint8_t> rev;
+  rev.reserve(qn + tn);
+  while (i > 0 || j > 0) {
+    if (i > 0 && j > 0) {
+      const uint8_t qc = q[i - 1], tc = t[j - 1];
+      int32_t sub = (qc == tc && qc < 4) ? match
+                    : (qc >= 4 || tc >= 4) ? nscore
+                                           : mismatch;
+      if (H[i * W + j] == H[(i - 1) * W + (j - 1)] + sub) {
+        rev.push_back(1);
+        i--;
+        j--;
+        continue;
+      }
+    }
+    if (i > 0 && H[i * W + j] == H[(i - 1) * W + j] + ins) {
+      rev.push_back(2);
+      i--;
+      continue;
+    }
+    rev.push_back(3);
+    j--;
+  }
+  const int64_t nops = static_cast<int64_t>(rev.size());
+  for (int64_t k = 0; k < nops; k++) ops_out[k] = rev[nops - 1 - k];
+  return nops;
 }
 
 }  // extern "C"

@@ -2,9 +2,9 @@
 
 The port's copy of the entry points of ``blasr_tpu/native`` that it calls:
 the SA-IS suffix-array builder, the FASTA body encoder, the move-string
-unpacker and the SAM record fields, ``xeq_cigar`` and ``sam_fields``
-(``csrc/host_native.cpp``, built by ``g++`` through ``ops/_build.py`` at
-first use). Each function runs the C++ code when the library is built and
+unpacker, the SAM record fields, ``xeq_cigar`` and ``sam_fields``, and the
+dense global aligner ``global_align`` (``csrc/host_native.cpp``, built by
+``g++`` through ``ops/_build.py`` at first use). Each function runs the C++ code when the library is built and
 its plain version, which gives the same result, when no ``g++`` is
 present; each returns its result, never None.
 """
@@ -209,3 +209,64 @@ def sam_fields(
         buf[c0 + 1 : s0].decode(),
         buf[s0 + 1 : s0 + 1 + int(lens[2])].decode(),
     )
+
+
+def global_align_plain(q, t, match, mismatch, nscore, ins, dele):
+    """The numpy row sweep: the whole H matrix, each row's left dependency
+    resolved by a scan, then the same traceback as the C++."""
+    qn, tn = len(q), len(t)
+    H = np.empty((qn + 1, tn + 1), np.int32)
+    H[0, :] = np.arange(tn + 1, dtype=np.int32) * dele
+    H[:, 0] = np.arange(qn + 1, dtype=np.int32) * ins
+    t_arr = np.asarray(t).astype(np.int16)
+    for i in range(1, qn + 1):
+        qc = int(q[i - 1])
+        sub = np.where(
+            (t_arr == qc) & (qc < 4), match,
+            np.where((t_arr >= 4) | (qc >= 4), nscore, mismatch),
+        ).astype(np.int32)
+        best = np.minimum(H[i - 1, :-1] + sub, H[i - 1, 1:] + ins)
+        row = H[i]
+        acc = row[0]
+        for j in range(1, tn + 1):
+            acc = min(best[j - 1], acc + dele)
+            row[j] = acc
+    ops_rev = []
+    i, j = qn, tn
+    while i > 0 or j > 0:
+        if i > 0 and j > 0:
+            qc, tc = int(q[i - 1]), int(t[j - 1])
+            sub = (match if (qc == tc and qc < 4)
+                   else nscore if (qc >= 4 or tc >= 4) else mismatch)
+            if H[i, j] == H[i - 1, j - 1] + sub:
+                ops_rev.append(1)
+                i -= 1
+                j -= 1
+                continue
+        if i > 0 and H[i, j] == H[i - 1, j] + ins:
+            ops_rev.append(2)
+            i -= 1
+            continue
+        ops_rev.append(3)
+        j -= 1
+    return np.asarray(ops_rev[::-1], np.uint8), int(H[qn, tn])
+
+
+def global_align(
+    q: np.ndarray, t: np.ndarray,
+    match: int, mismatch: int, nscore: int, ins: int, dele: int,
+) -> tuple[np.ndarray, int]:
+    """Dense global alignment of codes ``q`` against ``t``, both ends pinned,
+    linear gap costs, minimising: (ops uint8 START->END, 1 M 2 I 3 D;
+    score). Ties go diagonal, then insertion, then deletion. The caller
+    bounds the (len(q) + 1) x (len(t) + 1) matrix."""
+    lib = _build.load_host_library()
+    if lib is None:
+        return global_align_plain(q, t, match, mismatch, nscore, ins, dele)
+    q = np.ascontiguousarray(q, dtype=np.uint8)
+    t = np.ascontiguousarray(t, dtype=np.uint8)
+    ops = np.empty(len(q) + len(t) + 1, np.uint8)
+    score = np.zeros(1, np.int32)
+    n = lib.bn_global_align(_ptr(q), len(q), _ptr(t), len(t), match, mismatch, nscore, ins,
+                            dele, _ptr(ops), _ptr(score))
+    return ops[:n].copy(), int(score[0])

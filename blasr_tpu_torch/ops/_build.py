@@ -68,6 +68,8 @@ _SIGNATURES = {
     # strand clip_mode clip_op out out_cap lens_out
     "bn_sam_fields": ([_P, _LL, _LL, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _LL,
                        ctypes.c_char, _P, _LL, _P], ctypes.c_int64),
+    # q qn t tn match mismatch nscore ins del ops_out score_out
+    "bn_global_align": ([_P, _LL, _P, _LL, _I, _I, _I, _I, _I, _P, _P], ctypes.c_int64),
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,9 @@ unguided band (band escalation) keeping the better score. With
 ``best_n > 1`` each secondary (rank >= 1) passes the reference's host
 admission (``pipeline/secondary_refine.py``: SDP over the candidate's
 chain, the ``min_interval`` anchor gate, ``-maxScore`` on the SDP score)
-and takes the SDP chain's span where the two spans disagree.
+and takes the SDP chain's span where the two spans disagree. A run that
+holds reads longer than ``max_read_len`` maps them piecewise
+(``pipeline/piecewise.py``).
 
 m4 coordinates: qstrand is always 0; when tstrand == 1 the target interval
 is in reverse-complement coordinates of the contig; qstart/qend always
@@ -68,7 +70,28 @@ class MappingMetrics:
     secondary_checked: int = 0
     secondary_gated: int = 0
     secondary_replaced: int = 0
+    # piecewise mapping (-alignContigs, reads longer than max_read_len):
+    # segments and reads passed through the inner runs, records stitched
+    # from segments, the SDP fills of the gaps between them, and the host
+    # seconds of stitching (fills included)
+    piecewise_segments: int = 0
+    piecewise_pass_through: int = 0
+    piecewise_stitched: int = 0
+    piecewise_gap_fills: int = 0
+    piecewise_seconds: float = 0.0
     buckets: dict = dataclasses.field(default_factory=dict)
+
+    def add(self, other: "MappingMetrics", fields=None) -> None:
+        """Add ``other``'s counters and timers into these: the ``fields``
+        named, else every one, the per-bucket counts too."""
+        if fields is None:
+            fields = [f.name for f in dataclasses.fields(self) if f.name != "buckets"]
+            for key, (n_batches, n_reads) in other.buckets.items():
+                bk = self.buckets.setdefault(key, [0, 0])
+                bk[0] += n_batches
+                bk[1] += n_reads
+        for f in fields:
+            setattr(self, f, getattr(self, f) + getattr(other, f))
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -127,17 +150,14 @@ def _escalation_candidates(best_by: dict, params) -> set:
     return names
 
 
-def _check_supported(params: MappingParams, reads: Sequence[Read]) -> None:
+def _check_supported(params: MappingParams) -> None:
     unsupported = {
-        "piecewise": params.piecewise,
         "adaptive_cd": params.adaptive_cd,
         "sensitive_retry": params.sensitive_retry,
         "max_expand > min_expand (expand retries)": params.max_expand > params.min_expand,
         "place_repeats_randomly": params.place_repeats_randomly,
     }
     bad = [name for name, on in unsupported.items() if on]
-    if params.auto_segment and reads and max(len(r) for r in reads) > params.max_read_len:
-        bad.append("reads longer than max_read_len (piecewise auto-segmentation)")
     if bad:
         raise NotImplementedError(
             "not ported to blasr_tpu_torch yet: " + ", ".join(bad)
@@ -160,8 +180,20 @@ def run_mapping(
     ``clock`` a per-stage split of the device work (it synchronises after
     every stage, so use it only in a measurement run); ``fm`` (an
     ``index.fm.FMIndex``) anchors by FM backward search (``-bwt``), and
-    ``index`` may then hold no suffix array."""
-    _check_supported(params, reads)
+    ``index`` may then hold no suffix array. With ``auto_segment`` on,
+    a run holding reads longer than ``max_read_len`` goes through
+    ``pipeline/piecewise.run_mapping_piecewise``, which maps those reads
+    as segments and stitches them."""
+    if params.auto_segment and reads and max(len(r) for r in reads) > params.max_read_len:
+        # segmentation bounds each DP's indel drift (W/2 per segment) and
+        # the stitcher restores whole-read records
+        from blasr_tpu_torch.pipeline.piecewise import run_mapping_piecewise
+
+        return run_mapping_piecewise(
+            index, reads, params, device=device, metrics=metrics, clock=clock, fm=fm,
+            split_if_longer=params.max_read_len,
+        )
+    _check_supported(params)
     met = metrics if metrics is not None else MappingMetrics()
     t_run0 = time.time()
     mapper = Mapper(index, params, device=device, clock=clock, fm=fm)
@@ -236,10 +268,9 @@ def run_mapping(
                 index, retry_reads, esc, device=device, metrics=sub, clock=clock, fm=fm
             )
             met.escalated_reads += len(retry_reads)
-            for f in ("dispatch_seconds", "wait_seconds", "finalize_seconds", "total_dp_cells",
-                      "secondary_seconds", "secondary_checked", "secondary_gated",
-                      "secondary_replaced"):
-                setattr(met, f, getattr(met, f) + getattr(sub, f))
+            met.add(sub, ("dispatch_seconds", "wait_seconds", "finalize_seconds",
+                          "total_dp_cells", "secondary_seconds", "secondary_checked",
+                          "secondary_gated", "secondary_replaced"))
             best2: dict[str, int] = {}
             for r in r2:
                 best2[r.qname] = min(best2.get(r.qname, 0), r.score)

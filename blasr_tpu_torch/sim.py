@@ -78,6 +78,39 @@ def parse_truth(name: str) -> tuple[int, int, int]:
     return int(parts[2]), int(parts[3]), int(parts[4])
 
 
+def evolve_sequence(
+    codes: np.ndarray,
+    sub_rate: float,
+    ins_rate: float,
+    del_rate: float,
+    seed: int = 0,
+) -> tuple[np.ndarray, dict]:
+    """Mutate a sequence (role of sequtils/Evolve.cpp): substitutions,
+    insertions and deletions at the given per-base rates. Returns the
+    mutated sequence and mutation counts."""
+    rng = np.random.default_rng(seed)
+    n = len(codes)
+    r = rng.random(n)
+    keep = r >= del_rate
+    seg = codes[keep]
+    r2 = rng.random(len(seg))
+    subs = (r2 < sub_rate) & (seg < 4)
+    seg = np.where(
+        subs, (seg + rng.integers(1, 4, len(seg))) % 4, seg
+    ).astype(np.uint8)
+    n_ins = rng.binomial(len(seg), ins_rate)
+    if n_ins:
+        pos = np.sort(rng.integers(0, len(seg) + 1, n_ins))
+        ins = rng.integers(0, 4, n_ins).astype(np.uint8)
+        seg = np.insert(seg, pos, ins)
+    stats = {
+        "n_sub": int(subs.sum()),
+        "n_del": int(n - keep.sum()),
+        "n_ins": int(n_ins),
+    }
+    return seg, stats
+
+
 # ---- alchemy-style simulation (context-conditioned error model) ----------
 #
 # Role of reference ``simulator/Alchemy.cpp`` (read simulator driven by an

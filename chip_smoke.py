@@ -11,12 +11,12 @@ Phases, each of which must pass:
      k=14 index, the 2000-read FASTA bench corpus and the 2000-read CLR
      FASTQ corpus (published PacBio CLR error model, quality values);
   3. each kernel against its plain PyTorch version on the card, bit for
-     bit, at the main path's shapes: the banded DP at W = 32, 64, 128, 256
-     with I = 512 items and buckets L = 1024 and 3328, without quality
-     values on simulated read windows and in both quality modes (single
-     uint8, dual uint16 with bytes >= 128) on CLR reads; its guided mode
-     (per-item knots that wander off the shared line up to the clamp) at
-     W = 32, 64, 128, 256 (L = 1024) and W = 32, 128 (L = 3328) with
+     bit, at the main path's shapes: the banded DP with I = 512 items at
+     W = 32, 64, 128 (L = 1024) and W = 32, 256 (L = 3328), without
+     quality values on simulated read windows and in both quality modes
+     (single uint8, dual uint16 with bytes >= 128) on CLR reads; its guided
+     mode (per-item knots that wander off the shared line up to the clamp)
+     at W = 32, 64, 128, 256 (L = 1024) and W = 128 (L = 3328) with
      single quality; its matrix mode (a negative off-diagonal) at W = 32
      and 256, L = 1024, without and with quality; the span and row gathers
      at the bench shapes (the row gather in its int4 and scalar instances)
@@ -29,14 +29,15 @@ Phases, each of which must pass:
      microbenchmark's span gathers once on their own, with the launch
      counts reset, for K2' launches;
   4. the FASTA bench corpus through run_mapping on the card at the bench
-     operating point (warm-up, timed runs with every kernel launch counter
-     reset just before the first, a per-stage clock run), every timed
-     run's -m 4 lines equal to the JAX package's read by read
+     operating point (a warm-up run, then one timed run with the per-stage
+     clock on and every kernel launch counter reset just before it; each
+     later cell maps once, so, with no warm-up, to fit the time limit),
+     the timed run's -m 4 lines equal to the JAX package's read by read
      (tools/jax_m4_reference.json; with --out the card's lines are written
      beside it as m4_<corpus>.m4), then the user's CLI on 256 reads and a
      torch.profiler trace of one batch;
-  5. the CLR FASTQ corpus through run_mapping: warm-up, two timed runs,
-     the per-stage clock; accuracy within 0.01 of the JAX package's CPU
+  5. the CLR FASTQ corpus through run_mapping (one timed run with the
+     per-stage clock); accuracy within 0.01 of the JAX package's CPU
      figure and the records read by read as in phase 4; the single-quality
      DP kernel launched at W = 32 and at W >= 128 (band escalation);
   6. 256 CLR reads written as SAM with iq/sq tracks through the user's CLI:
@@ -47,7 +48,7 @@ Phases, each of which must pass:
      reads in the -unaligned file), and the same flags to a .bam read back
      equal the text;
   7. the CLR FASTQ corpus with -useGuidedAlign on the CLI's parameters
-     (one timed run, the per-stage clock): accuracy within 0.01 of the JAX
+     (one timed run with the per-stage clock): accuracy within 0.01 of the JAX
      package's CPU figure for the same flags, the records read by read,
      the guided DP kernel at W = 32 and W = 128, the walk's launches on
      one batch against the unguided walk; the CLI on 256 of those reads
@@ -57,7 +58,7 @@ Phases, each of which must pass:
      matrix prints the lines of run_mapping and runs the matrix kernel;
   9. config 3, -bestn 2 -m 5, on the FASTA corpus (bench.config3_params:
      two alignments per read, move strings on the wire, the secondaries
-     admitted on the host): warm-up, one timed run, the per-stage clock;
+     admitted on the host): one timed run with the per-stage clock;
      every -m 5 line equal to the JAX package's read by read
      (tools/jax_m5_reference.json), accuracy equal to phase 4's, the
      host seconds of the secondary admission, the walk's launches and
@@ -66,9 +67,9 @@ Phases, each of which must pass:
      config3_sam, secondaries with FLAG 256); then the CLI with -bestn 2
      -m 5 on phase 4's 256 reads prints run_mapping's lines;
  10. config 2, -sam -clipping soft, on the CLR FASTQ corpus
-     (bench.bench_params(emit_moves=True)): warm-up, two timed runs of
-     run_mapping plus write_sam into a StringIO, the per-stage clock; every
-     timed run's SAM lines equal to the JAX package's read by read
+     (bench.bench_params(emit_moves=True)): one timed run of run_mapping
+     with the per-stage clock plus write_sam into a StringIO; its SAM
+     lines equal to the JAX package's read by read
      (tools/jax_sam_reference.json config2, the header too; with --out
      the card's text lands in sam_config2.sam), accuracy equal to phase
      5's, the single-quality DP at W = 32 and W = 256, and the lines read
@@ -76,8 +77,8 @@ Phases, each of which must pass:
  11. config 4, -bwt -m 4, on the FASTA corpus (bench.config4_params: B=64,
      anchored through the FM index; the suffix-array cells' device tables
      are freed first): the FM index built from the genome (build seconds,
-     the device bytes of its arrays), warm-up, two timed runs, the
-     per-stage clock; every timed run's -m 4 lines equal to the JAX
+     the device bytes of its arrays), one timed run with the per-stage
+     clock; its -m 4 lines equal to the JAX
      package's read by read (tools/jax_fm_reference.json) and accuracy
      equal to its figure; peak device memory; the FM anchors of the
      widest batch on the card equal to the CPU's, and their time on the
@@ -87,8 +88,8 @@ Phases, each of which must pass:
  12. seeds of k = 15 and k = 18 on the FASTA corpus (bench.k15_params,
      bench.k18_params): each index built by build_index_from_arrays (seconds,
      the device bytes of its arrays), its kind asserted (bisection at k =
-     15 although direct_lut is set, wide keys at k = 18); warm-up, one
-     timed run, the per-stage clock; the timed run's -m 4 lines equal to
+     15 although direct_lut is set, wide keys at k = 18); one timed run
+     with the per-stage clock; its -m 4 lines equal to
      the JAX package's read by read (tools/jax_sa_reference.json) and
      accuracy equal to its figure; peak device memory; the anchors of the
      widest batch on the card equal to the CPU's, and their time on the
@@ -97,11 +98,24 @@ Phases, each of which must pass:
      reference_order_sa) prints the lines of run_mapping on
      build_index_from_sa of that file, and with -nucmer the lines of
      run_mapping on a k = 30 index at the parameters params_from_args
-     gives.
+     gives;
+ 13. piecewise mapping, once per corpus with no warm-up: config 5
+     (-alignContigs, bench.config5_params: two contigs of 1.2 and 0.8 Mb
+     evolved from the genome, run_mapping_piecewise), its -m 4 and SAM
+     lines equal to the JAX package's read by read
+     (tools/jax_piecewise_reference.json) and its two whole-contig
+     records; the long-read corpus (300 reads of 5-24 kb, then 100 bench
+     reads) through run_mapping, which maps every read above
+     max_read_len piecewise, its -m 4 lines read by read and accuracy
+     within 0.01 of the JAX package's; the host seconds of stitching and
+     of the secondary admission apart from the run's; then the CLI with
+     -alignContigs on the 0.8 Mb contig and with -m 4 on 50 long reads,
+     each printing the library's lines.
 The line before the last is a JSON object with each kernel's launches
 (each on its own path: the single-quality DP and the gathers on config 2;
-K1, K2 and K3 also on config 4's first timed run, ``launches_config4``,
-and on phase 12's timed run, ``launches_k15`` and ``launches_k18``),
+K1, K2 and K3 also on config 4's timed run, ``launches_config4``,
+on phase 12's timed run, ``launches_k15`` and ``launches_k18``, and on
+phase 13's runs, ``launches_config5`` and ``launches_long``),
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and the exit code is not 0. Needs one CUDA card.
 """
@@ -117,8 +131,15 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-DP_SHAPES = [(W, L) for L in (1024, 3328) for W in (32, 64, 128, 256)]
-GUIDED_DP_SHAPES = [(32, 1024), (64, 1024), (128, 1024), (256, 1024), (32, 3328), (128, 3328)]
+# each DP instance at the buckets its paths give it: the narrow bands (W = 32,
+# 64) up to 1536 bp and W = 32 up to 3328 at the bench point; the wide band
+# W = 128 at 1024 bp and W = 256 at 2048 bp and above (params.band_width_for);
+# the guided full band stays at 128 at every length. Every W of each mode
+# runs at least once; bucket pairs no path launches (W = 64 or 128 at 3328,
+# W = 256 at 1024 unguided, guided W = 32 at 3328) are left to the card-only
+# tests (tests/test_torch_cuda.py), which hold every instance at more shapes
+DP_SHAPES = [(32, 1024), (64, 1024), (128, 1024), (32, 3328), (256, 3328)]
+GUIDED_DP_SHAPES = [(32, 1024), (64, 1024), (128, 1024), (256, 1024), (128, 3328)]
 MATRIX_DP_SHAPES = [(32, 1024), (256, 1024)]
 DP_ITEMS = 512          # B = 256 reads x 2 DP windows
 MAIN_DP_SHAPE = (32, 1024)
@@ -154,10 +175,14 @@ SAM_REFERENCE = os.path.join(HERE, "tools", "jax_sam_reference.json")
 FM_REFERENCE = os.path.join(HERE, "tools", "jax_fm_reference.json")
 # the same for seeds of k = 15 and k = 18 on the FASTA corpus (tools/jax_sa_reference.py)
 SA_REFERENCE = os.path.join(HERE, "tools", "jax_sa_reference.json")
+# the same for config 5's -m 4 and SAM lines and the long reads' -m 4 lines
+# (tools/jax_piecewise_reference.py)
+PIECEWISE_REFERENCE = os.path.join(HERE, "tools", "jax_piecewise_reference.json")
 RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0, "config3": 0,
-                     "config2": 0, "config3_sam": 0, "config4": 0, "k15": 0, "k18": 0}
+                     "config2": 0, "config3_sam": 0, "config4": 0, "k15": 0, "k18": 0,
+                     "config5": 0, "config5_sam": 0, "long": 0}
 RECORD_FORMAT = {"fasta": "m4", "clr": "m4", "clr_guided": "m4", "config3": "m5",
-                 "config4": "m4", "k15": "m4", "k18": "m4"}
+                 "config4": "m4", "k15": "m4", "k18": "m4", "config5": "m4", "long": "m4"}
 # H100 SXM peaks: HBM 3.35 TB/s; INT32 ALU 132 SMs x 64 lanes x 1.98 GHz
 # (Hopper architecture white paper), the rate of the DP's integer work
 HBM_BYTES_PER_S = 3.35e12
@@ -414,8 +439,8 @@ def compare_dp(args, W: int, L: int, mode: str, kind: str, knots=None, scores=No
 
 
 def check_dp(windows) -> list:
-    """The DP kernel against its plain version at every W and L, without
-    quality values and in both quality modes."""
+    """The DP kernel against its plain version at each (W, L) of
+    DP_SHAPES, without quality values and in both quality modes."""
     rows = []
     for W, L in DP_SHAPES:
         for mode in QUAL_MODES:
@@ -832,14 +857,14 @@ def check_cli_sam_output(sam: str, genome_fa: str, reads, index) -> dict:
             "unaligned": len(unal), "seconds": sam_s, "bam_seconds": bam_s}
 
 
-def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
-               formatter=None, sam_movie: str | None = None, fm=None) -> dict:
-    """One warm-up run (unless ``warmup`` is False), then ``n_timed`` timed
-    runs (every launch counter reset just before the first, read just after
-    it), then one run with the per-stage clock. Each timed run's records
+def map_corpus(index, reads, params, warmup: bool = False, formatter=None,
+               sam_movie: str | None = None, fm=None) -> dict:
+    """One warm-up run when ``warmup`` is set, then one timed run with the
+    per-stage clock on (it synchronises after every stage) and every launch
+    counter reset just before it, read just after it. The run's records
     are kept as lines, -m 4 unless ``formatter`` (record -> line) says
-    otherwise. With ``sam_movie`` each timed run also writes its records
-    with ``write_sam`` (soft clipping, the genome, that movie name) into a
+    otherwise. With ``sam_movie`` the run also writes its records with
+    ``write_sam`` (soft clipping, the genome, that movie name) into a
     StringIO, timed in the same window after the mapping's own wall
     (``sam_walls_s``, the write alone ``sam_write_s``), and keeps the SAM
     text's lines. ``fm`` anchors every run through that FM index."""
@@ -861,64 +886,53 @@ def map_corpus(index, reads, params, n_timed: int, warmup: bool = True,
         run_mapping(index, reads, params, device="cuda", fm=fm)
         torch.cuda.synchronize()
         warm_s = time.time() - t0
-    walls, line_runs = [], []
-    sam_walls, sam_writes, sam_runs = [], [], []
-    for k in range(n_timed):
-        met = MappingMetrics()
-        if k == 0:
-            reset_launch_counts()
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        recs, unm = run_mapping(index, reads, params, device="cuda", metrics=met, fm=fm)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        if sam_movie is not None:
-            t1 = time.time()
-            buf = io.StringIO()
-            write_sam(recs, reads, index.seqdb, buf, clipping="soft", unmapped=unm,
-                      movie_name=sam_movie, genome=index.genome)
-            torch.cuda.synchronize()
-            t2 = time.time()
-            sam_writes.append(t2 - t1)
-            sam_walls.append(t2 - t0)
-            sam_runs.append(buf.getvalue().splitlines())
-        line_runs.append(([(r.qname, formatter(r)) for r in recs], unm))
-        if k == 0:
-            counts, by_shape = launch_counts(), dp_launch_counts()
-            peak = torch.cuda.max_memory_allocated()
-            records, unmapped, met0 = recs, unm, met
+    met = MappingMetrics()
     clock = StageClock(torch.device("cuda"))
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    run_mapping(index, reads, params, device="cuda", clock=clock, fm=fm)
-    clocked_s = time.time() - t0
+    records, unmapped = run_mapping(index, reads, params, device="cuda", metrics=met,
+                                    clock=clock, fm=fm)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts, by_shape = launch_counts(), dp_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    out = {}
+    if sam_movie is not None:
+        t1 = time.time()
+        buf = io.StringIO()
+        write_sam(records, reads, index.seqdb, buf, clipping="soft", unmapped=unmapped,
+                  movie_name=sam_movie, genome=index.genome)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        out = {"sam_walls_s": [t2 - t0], "sam_write_s": [t2 - t1],
+               "sam_runs": [buf.getvalue().splitlines()],
+               "reads_per_s_with_sam": [len(reads) / (t2 - t0)]}
     stage = dict(clock.seconds)
     total_stage = sum(stage.values())
     acc = bench.accuracy_true_locus(records, reads)
-    log(f"  {len(reads)} reads: reads/s of the timed runs "
-        + ", ".join(f"{len(reads) / w:.1f}" for w in walls)
-        + (f" (warm-up run {warm_s:.1f} s)" if warmup else " (no warm-up run)")
-        + f"; records {len(records)} ({n_secondaries(records)} beyond the first of their read), "
-        f"unmapped {len(unmapped)}, escalated {met0.escalated_reads}; accuracy_true_locus "
-        f"{acc:.4f}")
-    log(f"  host split: dispatch {met0.dispatch_seconds:.3f} s wait {met0.wait_seconds:.3f} s "
-        f"finalize {met0.finalize_seconds:.3f} s; batches {met0.n_batches}; buckets {met0.buckets}")
+    log(f"  {len(reads)} reads: {len(reads) / wall:.1f} reads/s in the timed run (stage clock "
+        f"on; " + (f"warm-up run {warm_s:.1f} s" if warmup else "no warm-up run")
+        + f"); records {len(records)} ({n_secondaries(records)} beyond the first of their "
+        f"read), unmapped {len(unmapped)}, escalated {met.escalated_reads}; "
+        f"accuracy_true_locus {acc:.4f}")
+    log(f"  host split: dispatch {met.dispatch_seconds:.3f} s wait {met.wait_seconds:.3f} s "
+        f"finalize {met.finalize_seconds:.3f} s; batches {met.n_batches}; buckets {met.buckets}")
     log(f"  peak torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB")
-    log(f"  stage clock ({clocked_s:.2f} s run): " + ", ".join(
+    log(f"  stage clock ({wall:.2f} s run): " + ", ".join(
         f"{k} {v:.3f} s ({100 * v / max(total_stage, 1e-9):.1f}%)" for k, v in stage.items()))
-    log(f"  kernel launches in the first timed run: {counts}; DP by shape {by_shape}")
-    out = {}
+    log(f"  kernel launches in the timed run: {counts}; DP by shape {by_shape}")
     if sam_movie is not None:
-        log("  with write_sam: reads/s " + ", ".join(f"{len(reads) / w:.1f}" for w in sam_walls)
-            + "; SAM write alone " + ", ".join(f"{w:.3f} s" for w in sam_writes))
-        out = {"sam_walls_s": sam_walls, "sam_write_s": sam_writes, "sam_runs": sam_runs,
-               "reads_per_s_with_sam": [len(reads) / w for w in sam_walls]}
-    return {**out, "reads": len(reads), "walls_s": walls, "warm_s": warm_s,
-            "reads_per_s": [len(reads) / w for w in walls], "accuracy_true_locus": acc,
+        log(f"  with write_sam: {out['reads_per_s_with_sam'][0]:.1f} reads/s; SAM write alone "
+            f"{out['sam_write_s'][0]:.3f} s")
+    return {**out, "reads": len(reads), "walls_s": [wall], "warm_s": warm_s,
+            "reads_per_s": [len(reads) / wall], "accuracy_true_locus": acc,
             "records": len(records), "secondaries": n_secondaries(records),
             "unmapped": len(unmapped),
-            "escalated": met0.escalated_reads, "metrics": met0.to_dict(),
-            "stage_seconds": stage, "clocked_s": clocked_s, "peak_bytes": peak,
-            "launches": counts, "dp_launches": by_shape, "line_runs": line_runs}
+            "escalated": met.escalated_reads, "metrics": met.to_dict(),
+            "stage_seconds": stage, "peak_bytes": peak,
+            "launches": counts, "dp_launches": by_shape,
+            "line_runs": [([(r.qname, formatter(r)) for r in records], unmapped)]}
 
 
 def load_references() -> dict:
@@ -926,10 +940,12 @@ def load_references() -> dict:
     (tools/jax_m4_reference.py), config 3's -m 5 on the FASTA corpus
     (tools/jax_m5_reference.py), the SAM lines of configs 2 and 3
     (tools/jax_sam_reference.py), config 4's -m 4 on the FASTA corpus
-    (tools/jax_fm_reference.py) and -m 4 with seeds of k = 15 and 18
-    (tools/jax_sa_reference.py), all written on the CPU."""
+    (tools/jax_fm_reference.py), -m 4 with seeds of k = 15 and 18
+    (tools/jax_sa_reference.py) and config 5's and the long reads' lines
+    (tools/jax_piecewise_reference.py), all written on the CPU."""
     refs = {}
-    for path in (M4_REFERENCE, M5_REFERENCE, SAM_REFERENCE, FM_REFERENCE, SA_REFERENCE):
+    for path in (M4_REFERENCE, M5_REFERENCE, SAM_REFERENCE, FM_REFERENCE, SA_REFERENCE,
+                 PIECEWISE_REFERENCE):
         with open(path) as f:
             refs.update(json.load(f))
     return refs
@@ -1101,7 +1117,7 @@ def write_fastq_reads(path: str, reads) -> None:
 
 def check_guided(genome_fa: str, reads_fq: str, clr_reads, index, unguided: dict) -> dict:
     """The CLR FASTQ corpus with -useGuidedAlign on the CLI's parameters:
-    one timed run and the per-stage clock, accuracy against the JAX
+    one timed run with the per-stage clock, accuracy against the JAX
     package's CPU figure, the guided DP at W = 32 and W = 128, the walk's
     launches on one batch with and without guided bands, and the CLI on 256
     of the reads printing run_mapping's lines."""
@@ -1116,7 +1132,7 @@ def check_guided(genome_fa: str, reads_fq: str, clr_reads, index, unguided: dict
     if not gparams.guided_band:
         raise AssertionError("-useGuidedAlign did not set guided_band")
     log("CLR FASTQ corpus with -useGuidedAlign (CLI parameters) through run_mapping:")
-    res = map_corpus(index, clr_reads, gparams, n_timed=1, warmup=False)
+    res = map_corpus(index, clr_reads, gparams)
     acc = res["accuracy_true_locus"]
     if abs(acc - JAX_GUIDED_ACCURACY) > CLR_ACCURACY_SLACK:
         raise AssertionError(f"guided CLR accuracy_true_locus {acc:.4f} not within "
@@ -1209,8 +1225,8 @@ def check_matrix(genome_fa: str, reads, index, cli: dict) -> dict:
 
 def check_config3(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_dir,
                   fasta: dict, cli: dict) -> dict:
-    """Config 3 (-bestn 2 -m 5) on the FASTA corpus: warm-up, one timed run
-    and the per-stage clock through run_mapping; every -m 5 line against
+    """Config 3 (-bestn 2 -m 5) on the FASTA corpus: one timed run with
+    the per-stage clock through run_mapping; every -m 5 line against
     the JAX package's read by read; accuracy equal to the -m 4 run's and to
     the JAX package's; every kernel launched; the walk of one batch of
     513-768 bp reads with and without moves; then the CLI with -bestn 2
@@ -1225,7 +1241,7 @@ def check_config3(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_d
     params = bench.config3_params()
     by_name = {r.name: r for r in reads}
     log("config 3 (-bestn 2 -m 5) on the FASTA corpus through run_mapping:")
-    res = map_corpus(index, reads, params, n_timed=1,
+    res = map_corpus(index, reads, params,
                      formatter=lambda r: format_m5(r, by_name[r.qname], index),
                      sam_movie=os.path.basename(reads_fa))
     res["records_vs_jax"] = check_records("config3", res, refs, reads_fa, out_dir)
@@ -1282,9 +1298,9 @@ def check_config3(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_d
 
 def check_config2(reads_fq: str, clr_reads, index, refs: dict, out_dir, fastq: dict) -> dict:
     """Config 2 (-sam -clipping soft) on the CLR FASTQ corpus at the bench
-    operating point with move strings: warm-up, two timed runs of
-    run_mapping plus write_sam into a StringIO, the per-stage clock; every
-    timed run's SAM lines against the JAX package's read by read, the
+    operating point with move strings: one timed run of run_mapping with
+    the per-stage clock plus write_sam into a StringIO; its SAM lines
+    against the JAX package's read by read, the
     header equal; accuracy equal to the -m 4 run's (phase 5); every kernel
     launched, the single-quality DP at W = 32 and, for the escalated
     reads, W = 256; the lines read back through the port's read_sam from
@@ -1297,7 +1313,7 @@ def check_config2(reads_fq: str, clr_reads, index, refs: dict, out_dir, fastq: d
 
     params = bench.bench_params(emit_moves=True)
     log("config 2 (-sam -clipping soft) on the CLR FASTQ corpus through run_mapping + write_sam:")
-    res = map_corpus(index, clr_reads, params, n_timed=2, sam_movie=os.path.basename(reads_fq))
+    res = map_corpus(index, clr_reads, params, sam_movie=os.path.basename(reads_fq))
     lines = res["sam_runs"][0]
     res["sam_vs_jax"] = check_sam_records("config2", res, refs, reads_fq, out_dir)
     acc = res["accuracy_true_locus"]
@@ -1349,8 +1365,8 @@ def check_config4(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_d
     with the suffix-array cells' device tables freed first: the FM index
     built from the genome as the CLI builds it (the port's SA-IS and
     build_fm_index; seconds, and the device bytes of the seven FM arrays),
-    then warm-up, two timed runs and the per-stage clock through
-    run_mapping on a genome-only index; every timed run's -m 4 lines
+    then one timed run with the per-stage clock through run_mapping on a
+    genome-only index; its -m 4 lines
     against the JAX package's read by read and accuracy equal to its
     figure; every kernel launched. Then find_anchors_fm on the widest batch
     of the corpus as the mapper calls it (both strands, 2B rows) on the
@@ -1395,7 +1411,7 @@ def check_config4(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_d
         f"{fm_s:.1f} s (suffix array {sa_s:.1f} s), n = {fm.n}; its seven device arrays "
         f"{fm_bytes / 2**20:.1f} MiB, the packed genome {di.genome_pad.numel() * 4 / 2**20:.1f} "
         f"MiB, uploaded in {up_s:.2f} s; {resident / 2**20:.1f} MiB allocated before it")
-    res = map_corpus(findex, reads, params, n_timed=2, fm=fm)
+    res = map_corpus(findex, reads, params, fm=fm)
     res["records_vs_jax"] = check_records("config4", res, refs, reads_fa, out_dir)
     ref = refs["config4"]
     acc = res["accuracy_true_locus"]
@@ -1475,8 +1491,8 @@ def check_sa_seeds(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_
     build_index_from_arrays (seconds) and uploaded by make_device_index
     (seconds, the device bytes of its four arrays), its kind asserted
     (bisection at k = 15 although direct_lut is set, wide keys at k = 18);
-    warm-up, one timed run and the per-stage clock through run_mapping; the
-    timed run's -m 4 lines against the JAX package's read by read and
+    one timed run with the per-stage clock through run_mapping; its -m 4
+    lines against the JAX package's read by read and
     accuracy equal to its figure; every kernel launched; then the anchor
     search on the widest batch of the corpus as the mapper calls it (both
     strands) on the card and on the CPU, all four outputs equal, and its
@@ -1529,7 +1545,7 @@ def check_sa_seeds(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_
             f"built in {build_s:.2f} s, uploaded in {up_s:.2f} s (lut_meta {di.lut_meta}); "
             f"device arrays {array_bytes} = {sum(array_bytes.values()) / 2**20:.1f} MiB; "
             f"{resident / 2**20:.1f} MiB allocated before it")
-        res = map_corpus(sidx, reads, params, n_timed=1)
+        res = map_corpus(sidx, reads, params)
         res["records_vs_jax"] = check_records(cell, res, refs, reads_fa, out_dir)
         ref = refs[cell]
         if res["accuracy_true_locus"] != ref["accuracy_true_locus"]:
@@ -1615,6 +1631,149 @@ def check_sa_seeds(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_
     return out
 
 
+def check_piecewise(genome_fa: str, index, refs: dict, out_dir) -> dict:
+    """Piecewise mapping on the card, once per corpus with no warm-up (the
+    same K1 instances ran in phases 4 and 5): config 5 (-alignContigs,
+    bench.config5_params) on the two evolved contigs through
+    run_mapping_piecewise, its -m 4 and SAM (-clipping soft) lines against
+    the JAX package's read by read (tools/jax_piecewise_reference.json
+    config5, config5_sam) and its two whole-contig records equal to the
+    JAX package's lines; then the long-read corpus (300 reads of 5-24 kb
+    and 100 bench reads) through run_mapping at the bench operating point,
+    where every read above max_read_len maps piecewise, its -m 4 lines
+    read by read (``long``) and accuracy within 0.01 of the JAX package's;
+    each run's launches (counts reset just before it), peak memory and
+    the host split (the inner runs' dispatch, wait and finalize, the
+    secondary admission inside finalize, the stitching with its SDP
+    fills). Then the CLI with -alignContigs on ctg2 alone and on 50 long
+    reads without it, each printing the lines of the library's run. The
+    mapping runs carry the per-stage clock, which synchronises after every
+    stage."""
+    import io
+
+    import torch
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.io.batching import read_records
+    from blasr_tpu_torch.io.fasta import write_fasta
+    from blasr_tpu_torch.ops import dp_launch_counts, launch_counts, reset_launch_counts
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.output.sam_writer import write_sam
+    from blasr_tpu_torch.pipeline.mapper import StageClock, make_device_index
+    from blasr_tpu_torch.pipeline.piecewise import run_mapping_piecewise
+    from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
+
+    t0 = time.time()
+    cells = (("config5", bench.ensure_contig_corpus(), bench.config5_params(),
+              run_mapping_piecewise),
+             ("long", bench.ensure_long_corpus(), bench.bench_params(), run_mapping))
+    corpus_s = time.time() - t0
+    t0 = time.time()
+    make_device_index(index, bench.bench_params(), "cuda")
+    torch.cuda.synchronize()
+    log(f"piecewise corpora written in {corpus_s:.1f} s; device index (direct 4^14 tables) "
+        f"{time.time() - t0:.1f} s")
+    out = {}
+    for cell, path, params, run in cells:
+        reads = read_records(path)
+        n_bases = sum(len(r) for r in reads)
+        met = MappingMetrics()
+        clock = StageClock(torch.device("cuda"))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        recs, unm = run(index, reads, params, device="cuda", metrics=met, clock=clock)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts, by_shape = launch_counts(), dp_launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        stage = dict(clock.seconds)
+        total_stage = sum(stage.values())
+        res = {"reads": len(reads), "bases": n_bases, "walls_s": [wall],
+               "reads_per_s": [len(reads) / wall], "bases_per_s": [n_bases / wall],
+               "records": len(recs), "unmapped": len(unm), "metrics": met.to_dict(),
+               "stage_seconds": stage, "peak_bytes": peak, "launches": counts,
+               "dp_launches": by_shape,
+               "line_runs": [([(r.qname, format_m4(r)) for r in recs], unm)]}
+        log(f"{cell}: {len(reads)} reads, {n_bases} bases in {wall:.2f} s ({len(reads) / wall:.1f} "
+            f"reads/s, {n_bases / wall / 1e3:.1f} kb/s; no warm-up, the stage clock on); "
+            f"records {len(recs)}, "
+            f"unmapped {len(unm)}; segments {met.piecewise_segments}, passed through "
+            f"{met.piecewise_pass_through}, stitched records {met.piecewise_stitched}, gap fills "
+            f"{met.piecewise_gap_fills}")
+        log(f"  host split: dispatch {met.dispatch_seconds:.3f} s wait {met.wait_seconds:.3f} s "
+            f"finalize {met.finalize_seconds:.3f} s (secondary admission "
+            f"{met.secondary_seconds:.3f} s of it, {met.secondary_checked} checked), stitching "
+            f"{met.piecewise_seconds:.3f} s; batches {met.n_batches}, escalated "
+            f"{met.escalated_reads}; buckets {met.buckets}")
+        log(f"  stage clock: " + ", ".join(
+            f"{k} {v:.3f} s ({100 * v / max(total_stage, 1e-9):.1f}%)" for k, v in stage.items()))
+        log(f"  peak torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; kernel launches "
+            f"{counts}; DP by shape {by_shape}")
+        if cell == "config5":
+            want = refs["config5"]["lines"]
+            got = [line for _, line in res["line_runs"][0][0]]
+            if got != want or {r.qname for r in recs} != {"ctg1", "ctg2"}:
+                raise AssertionError(f"config 5: {got} are not the JAX package's whole-contig "
+                                     f"records {want}")
+            t1 = time.time()
+            buf = io.StringIO()
+            write_sam(recs, reads, index.seqdb, buf, clipping="soft", unmapped=unm,
+                      movie_name=os.path.basename(path), genome=index.genome)
+            res["sam_write_s"] = time.time() - t1
+            res["sam_runs"] = [buf.getvalue().splitlines()]
+            log(f"  whole-contig records equal to the JAX package's: {got}; SAM write "
+                f"{res['sam_write_s']:.3f} s ({sum(r.path.n_aligned for r in recs)} ops)")
+            res["sam_vs_jax"] = check_sam_records("config5_sam", res, refs, path, out_dir)
+        else:
+            acc = bench.accuracy_true_locus(recs, reads)
+            ref_acc = refs["long"]["accuracy_true_locus"]
+            res["accuracy_true_locus"] = acc
+            log(f"  accuracy_true_locus {acc:.4f} (JAX package on the CPU {ref_acc:.4f})")
+            if abs(acc - ref_acc) > CLR_ACCURACY_SLACK:
+                raise AssertionError(f"long reads: accuracy_true_locus {acc:.4f}, the JAX "
+                                     f"package's {ref_acc:.4f}")
+        res["records_vs_jax"] = check_records(cell, res, refs, path, out_dir)
+        missing = [k for k, v in counts.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {cell} path: {missing}")
+        out[cell] = res
+
+    # the CLI: -alignContigs on the 0.8 Mb contig, -m 4 on 50 long reads
+    contigs = read_records(cells[0][1])
+    long_reads = read_records(cells[1][1])
+    runs = []
+    for tag, sub, extra, run in (
+            ("contig_cli", [r for r in contigs if r.name == "ctg2"], ["-alignContigs"],
+             run_mapping_piecewise),
+            ("reads_long_cli", long_reads[:50], [], run_mapping)):
+        path = os.path.join(bench.BENCH_DIR, f"{tag}.fasta")
+        write_fasta(path, [(r.name, r.codes) for r in sub])
+        params = cli_params(path, genome_fa, extra)
+        if params.piecewise != bool(extra) or params.remove_contained != bool(extra):
+            raise AssertionError(f"{tag}: {extra} gave piecewise {params.piecewise}, "
+                                 f"remove_contained {params.remove_contained}")
+        recs, _ = run(index, sub, params, device="cuda")
+        want = [format_m4(r) for r in recs]
+        lines, metrics, secs = run_cli(path, genome_fa, tag, extra)
+        if lines != want:
+            raise AssertionError(f"CLI {' '.join(extra)} on {tag} differs from the library's "
+                                 f"run: {sum(a != b for a, b in zip(lines, want))} of "
+                                 f"{len(want)} lines, {len(lines)} printed")
+        stages = metrics["stages"]
+        runs.append({"tag": tag, "flags": extra, "reads": len(sub), "lines": len(lines),
+                     "seconds": secs, "index_seconds": metrics["indexLoadSeconds"],
+                     "segments": stages["piecewise_segments"],
+                     "launches": metrics["kernelLaunches"]})
+        log(f"  CLI {' '.join(extra) or '-m 4'} on {len(sub)} {tag} reads -> {len(lines)} m4 "
+            f"lines in {secs:.1f} s (process included; index {metrics['indexLoadSeconds']:.2f} "
+            f"s; {stages['piecewise_segments']} segments), equal to the library's run; "
+            f"launches {metrics['kernelLaunches']}")
+    out["cli"] = runs
+    return out
+
+
 def run(out_path: str | None) -> int:
     import torch
 
@@ -1632,6 +1791,12 @@ def run(out_path: str | None) -> int:
     from blasr_tpu_torch.pipeline.mapper import make_device_index
 
     t_start = time.time()
+    phase_times = {}   # phase -> seconds into the run when it started
+
+    def mark(phase: str) -> None:
+        phase_times[phase] = time.time() - t_start
+        log(f"phase {phase} at {phase_times[phase]:.0f} s")
+
     # ---- phase 1: card, versions, build ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1651,6 +1816,7 @@ def run(out_path: str | None) -> int:
     log(f"host helpers: {index_path}")
 
     # ---- phase 2: corpora and index ----
+    mark("2")
     refs = load_references()
     out_dir = os.path.dirname(os.path.abspath(out_path)) if out_path else None
     if out_dir:
@@ -1672,6 +1838,7 @@ def run(out_path: str | None) -> int:
         f"FASTQ reads (md5 {fq_md5})")
 
     # ---- phase 3: kernels against their plain versions ----
+    mark("3")
     windows = {L: dp_windows(index.genome, clr_reads, L, seed=100 + 4 * i)
                for i, L in enumerate((1024, 3328))}
     dp_rows = check_dp(windows)
@@ -1691,8 +1858,9 @@ def run(out_path: str | None) -> int:
     del di
 
     # ---- phase 4: the FASTA bench corpus, the CLI, a profile ----
+    mark("4")
     log("FASTA bench corpus through run_mapping on the card:")
-    fasta = map_corpus(index, reads, params, n_timed=2)
+    fasta = map_corpus(index, reads, params, warmup=True)
     fasta["records_vs_jax"] = check_records("fasta", fasta, refs, reads_fa, out_dir)
     cli = check_cli(genome_fa, reads, index)
     if fasta["accuracy_true_locus"] < MIN_ACCURACY:
@@ -1703,8 +1871,9 @@ def run(out_path: str | None) -> int:
     prof = profile_batch(index, reads, params)
 
     # ---- phase 5: the CLR FASTQ corpus ----
+    mark("5")
     log("CLR FASTQ corpus through run_mapping on the card:")
-    fastq = map_corpus(index, clr_reads, params, n_timed=2)
+    fastq = map_corpus(index, clr_reads, params)
     fastq["records_vs_jax"] = check_records("clr", fastq, refs, reads_fq, out_dir)
     min_acc = JAX_CLR_ACCURACY - CLR_ACCURACY_SLACK
     if fastq["accuracy_true_locus"] < min_acc:
@@ -1723,26 +1892,37 @@ def run(out_path: str | None) -> int:
         f"the CPU {JAX_CLR_ACCURACY}); single-quality DP at W=32 and W>=128: {single}")
 
     # ---- phase 6: the CLI on SAM reads with iq/sq tracks ----
+    mark("6")
     sam = check_cli_sam(genome_fa, clr_reads, index)
 
     # ---- phase 7: guided bands on the CLR FASTQ corpus ----
+    mark("7")
     guided = check_guided(genome_fa, reads_fq, clr_reads, index, fastq)
     guided["records_vs_jax"] = check_records("clr_guided", guided, refs, reads_fq, out_dir)
 
     # ---- phase 8: -scoreMatrix through the CLI ----
+    mark("8")
     matrix = check_matrix(genome_fa, reads, index, cli)
 
     # ---- phase 9: config 3, -bestn 2 -m 5 ----
+    mark("9")
     config3 = check_config3(genome_fa, reads_fa, reads, index, refs, out_dir, fasta, cli)
 
     # ---- phase 10: config 2, -sam -clipping soft on the CLR FASTQ corpus ----
+    mark("10")
     config2 = check_config2(reads_fq, clr_reads, index, refs, out_dir, fastq)
 
     # ---- phase 11: config 4, -bwt -m 4 on the FASTA corpus ----
+    mark("11")
     config4 = check_config4(genome_fa, reads_fa, reads, index, refs, out_dir, cli)
 
     # ---- phase 12: seeds of k = 15 and k = 18, -sa and -nucmer ----
+    mark("12")
     sa_seeds = check_sa_seeds(genome_fa, reads_fa, reads, index, refs, out_dir, cli)
+
+    # ---- phase 13: piecewise mapping, config 5 and reads above max_read_len ----
+    mark("13")
+    piecewise = check_piecewise(genome_fa, index, refs, out_dir)
 
     # ---- the kernels line ----
     def dp_row(mode):
@@ -1765,7 +1945,9 @@ def run(out_path: str | None) -> int:
             "launches": dp_launches[mode],
             **({"launches_config4": config4["launches"]["banded_dp"],
                 "launches_k15": sa_seeds["k15"]["launches"]["banded_dp"],
-                "launches_k18": sa_seeds["k18"]["launches"]["banded_dp"]}
+                "launches_k18": sa_seeds["k18"]["launches"]["banded_dp"],
+                "launches_config5": piecewise["config5"]["launches"]["banded_dp"],
+                "launches_long": piecewise["long"]["launches"]["banded_dp"]}
                if mode == "none" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in dp_rows if r["mode"] == mode),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
@@ -1780,6 +1962,8 @@ def run(out_path: str | None) -> int:
             "launches_config4": config4["launches"][name],
             "launches_k15": sa_seeds["k15"]["launches"][name],
             "launches_k18": sa_seeds["k18"]["launches"][name],
+            "launches_config5": piecewise["config5"]["launches"][name],
+            "launches_long": piecewise["long"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in g_rows[name]),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1808,8 +1992,8 @@ def run(out_path: str | None) -> int:
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
-    if any(k["launches"] <= 0 or min(k.get(f"launches_{c}", 1) for c in ("config4", "k15", "k18"))
-           <= 0 for k in kernels):
+    if any(k["launches"] <= 0 or min(k.get(f"launches_{c}", 1) for c in (
+            "config4", "k15", "k18", "config5", "long")) <= 0 for k in kernels):
         raise AssertionError(f"a kernel never ran on its path: {kernels}")
     log(f"total {time.time() - t_start:.0f} s")
     if out_path:
@@ -1823,7 +2007,7 @@ def run(out_path: str | None) -> int:
                 "fasta": fasta, "cli": {k: v for k, v in cli.items() if k != "m4"},
                 "profile": prof, "fastq": fastq, "cli_sam": sam, "guided": guided,
                 "matrix": matrix, "config3": config3, "config2": config2, "config4": config4,
-                "sa_seeds": sa_seeds,
+                "sa_seeds": sa_seeds, "piecewise": piecewise, "phase_start_s": phase_times,
                 "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
                 "jax_guided_accuracy_cpu": JAX_GUIDED_ACCURACY,
                 "seconds": time.time() - t_start,

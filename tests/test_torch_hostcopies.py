@@ -107,6 +107,18 @@ def test_sim_corpus_bytes_equal_jax():
     assert sim.parse_truth(tr[3].name) == jsim.parse_truth(tr[3].name)
 
 
+@pytest.mark.parametrize("rates,seed", [((0.02, 0.005, 0.005), 1), ((0.1, 0.05, 0.08), 2),
+                                        ((0.0, 0.0, 0.0), 3)])
+def test_evolve_sequence_bytes_equal_jax(rates, seed):
+    """evolve_sequence, which writes config 5's contigs: the same bytes and
+    counts as the JAX package's, N bases left unsubstituted."""
+    g = jsim.simulate_genome(50_000, seed=7)
+    g[1000:1200] = 4
+    jout, jstats = jsim.evolve_sequence(g, *rates, seed=seed)
+    tout, tstats = sim.evolve_sequence(g, *rates, seed=seed)
+    assert tout.dtype == jout.dtype and tout.tobytes() == jout.tobytes() and tstats == jstats
+
+
 def _sam_line(name, flag, codes, qual, tags):
     return "\t".join([
         name, str(flag), "chr1", "11", "60", f"{len(codes)}M", "*", "0", "0",

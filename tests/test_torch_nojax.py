@@ -55,6 +55,16 @@ for fmt in ("fasta", "fastq"):
     write_m4(records, buf)
     out[fmt] = {"lines": buf.getvalue().splitlines(), "unmapped": unmapped,
                 "accuracy": bench.accuracy_true_locus(records, reads)}
+# a read longer than max_read_len: mapped piecewise, stitched whole
+s = 20_000
+r = genome[s : s + 3000].copy()
+r[15::31] = (r[15::31] + 1) % 4
+long_read = Read(f"long/0|ref|{s}|{s + 3000}|0", r, None, 0)
+records, unmapped = run_mapping(index, [long_read], params, device="cpu")
+buf = io.StringIO()
+write_m4(records, buf)
+out["long"] = {"lines": buf.getvalue().splitlines(), "unmapped": unmapped,
+               "accuracy": bench.accuracy_true_locus(records, [long_read])}
 out["loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "blasr_tpu")
                        and sys.modules[m] is not None)
 print(json.dumps(out))
@@ -76,6 +86,8 @@ def test_port_maps_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
+    assert len(out["long"]["lines"]) == 1 and out["long"]["accuracy"] == 1.0
+    assert out["long"]["lines"][0].split()[5:8] == ["0", "3000", "3000"]
     for fmt in ("fasta", "fastq"):
         assert len(out[fmt]["lines"]) == 8 and not out[fmt]["unmapped"], fmt
         assert out[fmt]["accuracy"] == 1.0
@@ -147,6 +159,10 @@ def cli_outputs(tmp_path_factory):
     write_sa_file(str(tmp_path / "g.sa"), reference_order_sa(genome))
     runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'sa_k18.m4'},-minMatch 18 -sa {tmp_path / 'g.sa'}")
     runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'nucmer.m4'},-nucmer")
+    # a 6 kb contig: -alignContigs, and as a read longer than -maxReadLen
+    write_fasta(str(tmp_path / "c.fasta"), [("ctg", genome[30_000:36_000])])
+    runs.append(f"{tmp_path / 'c.fasta'},{tmp_path / 'contigs.m4'},-alignContigs")
+    runs.append(f"{tmp_path / 'c.fasta'},{tmp_path / 'long.m4'},-maxReadLen 2048")
     proc = subprocess.run(
         [sys.executable, "-c", CLI_SCRIPT, str(tmp_path / "g.fa"),
          "-m", "4", "-header", "-device", "cpu", "-minMatch", "10",
@@ -161,7 +177,7 @@ def cli_outputs(tmp_path_factory):
     return {"bam": header + ["\t".join(r) for r in recs],
             **{run: (tmp_path / f"{run}.m4").read_text().splitlines()
                for run in (*CLI_FORMATS, "guided_matrix", "bestn2_m5", "sam_hard", "sam_soft",
-                           "bwt_built", "bwt_loaded", "sa_k18", "nucmer")}}
+                           "bwt_built", "bwt_loaded", "sa_k18", "nucmer", "contigs", "long")}}
 
 
 def test_cli_writes_m4_with_jax_blocked(cli_outputs):
@@ -196,6 +212,17 @@ def test_cli_maps_long_seeds_with_jax_blocked(cli_outputs, run):
     _check_cli_lines(cli_outputs[run])
     spans = [ln.split()[5:12] for ln in cli_outputs["fasta"][1:]]
     assert [ln.split()[5:12] for ln in cli_outputs[run][1:]] == spans
+
+
+@pytest.mark.parametrize("run", ["contigs", "long"])
+def test_cli_maps_long_queries_with_jax_blocked(cli_outputs, run):
+    """-alignContigs, and a query longer than -maxReadLen: the 6 kb contig's
+    segments stitch into one whole record at its locus."""
+    lines = cli_outputs[run]
+    assert lines[0].startswith("qname tname score") and len(lines) == 2
+    f = lines[1].split()
+    assert f[0] == "ctg/0_6000" and f[5:12] == ["0", "6000", "6000", "0", "30000", "36000",
+                                                "40000"]
 
 
 def test_cli_writes_bestn2_m5_with_jax_blocked(cli_outputs):

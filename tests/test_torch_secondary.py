@@ -18,11 +18,13 @@ from blasr_tpu.core.encode import revcomp_codes
 from blasr_tpu.index.artifacts import build_index_from_arrays
 from blasr_tpu.io.batching import Read
 from blasr_tpu.io.seqdb import SeqDB
+from blasr_tpu.output.m4 import format_m4 as jformat_m4
 from blasr_tpu.output import sam_writer as jsam
 from blasr_tpu.output import verbose as jverbose
 from blasr_tpu.pipeline import secondary_refine as jsr
 from blasr_tpu.pipeline.runner import run_mapping as jax_run_mapping
 from blasr_tpu_torch.output import sam_writer as tsam
+from blasr_tpu_torch.output.m4 import format_m4
 from blasr_tpu_torch.output import verbose as tverbose
 from blasr_tpu_torch.pipeline import secondary_refine as tsr
 from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
@@ -182,3 +184,21 @@ def test_write_sam_bestn2_equals_jax(repeat_mapping, clipping):
     body = [ln.split("\t") for ln in tbuf.getvalue().splitlines() if not ln.startswith("@")]
     assert sum(int(f[1]) & 256 > 0 for f in body) == len(trec) - len({r.qname for r in trec}) > 0
     assert any(r.path.packed is None for r in trec)
+
+
+@pytest.mark.parametrize("best_n", [2, 4])
+def test_remove_contained_m4_equals_jax(repeat_mapping, best_n):
+    """-removeContained on the repeat fixture: the device gate drops a
+    read's records whose read span lies inside a better one's; the -m 4
+    lines equal the JAX package's with the flag on and off."""
+    reads, _, _, _, index = repeat_mapping
+    n_records = []
+    for remove_contained in (False, True):
+        params = dataclasses.replace(BESTN2, best_n=best_n, n_dp_candidates=best_n,
+                                     remove_contained=remove_contained)
+        jrec, junm = jax_run_mapping(index, reads, params)
+        trec, tunm = run_mapping(index, reads, params, device="cpu")
+        assert [format_m4(r) for r in trec] == [jformat_m4(r) for r in jrec]
+        assert tunm == junm
+        n_records.append(len(trec))
+    assert n_records[0] > n_records[1] >= len(reads) - len(tunm)
