@@ -12,7 +12,7 @@ that ``pipeline/mapper.make_device_index`` builds:
   * bisection (``find_anchors_bisect``, k <= 15): a prefix lookup table
     jump-starts a fixed number of binary-search rounds over the sorted
     keys ``sa_kmers``; the run length of equal keys gives each interval's
-    width;
+    width (or, without run lengths, a second search its end);
   * wide keys (``find_anchors_wide``, k 16-30): the same search over keys
     split into a top-30-bit and a low half, compared as pairs.
 
@@ -256,7 +256,8 @@ def find_anchors_bisect(
     sa_masked: torch.Tensor,     # (G,) int32 suffix array, -1 where a position cannot seed
     sa_kmers: torch.Tensor,      # (G,) int32 ascending packed k-mers in SA order
     lut: torch.Tensor,           # (2^bits + 1,) int32 first SA row per key prefix
-    run_len: torch.Tensor,       # (G,) int32 number of equal keys from each row on
+    run_len: torch.Tensor | None,  # (G,) int32 number of equal keys from each row
+                                 # on; None: a second search finds each end
     *,
     k: int,
     max_hits_per_pos: int = 8,
@@ -288,7 +289,7 @@ def find_anchors_bisect(
     blo = lut[pref_lo]
     bhi = lut[pref_hi + 1]
     lo = _bounded_search(sa_kmers, qk_lo_key, blo, bhi, steps)
-    if expand == 0:
+    if expand == 0 and run_len is not None:
         # lo is side='left': where the key is present, sa_kmers[lo] == key
         # and the run length of equal keys is the interval's width
         loc = torch.clamp(lo, 0, G - 1).long()

@@ -15,7 +15,11 @@ Reference conventions reproduced here:
     TLEN is the genomic span (SAMPrinter.h:464-466).
   - SEQ is reverse-complemented when FLAG 16 is set.
 
-The lines are the JAX package's, byte for byte. Its two routes to a CIGAR
+The lines are the JAX package's, byte for byte, with one repair:
+``write_sam`` finds a record's read by stream index (``records_by_read``),
+where the JAX writer takes the record's stream index for a position in
+``reads``; under a read selector (``-start``, ``-stride``, ...) the JAX
+writer puts a record under another read's SEQ. Its two routes to a CIGAR
 are kept: a record whose path carries the walk's packed move string goes
 through ``native.sam_fields`` (CIGAR, SEQ and QUAL in one pass); a
 secondary whose ops come from its SDP blocks goes through
@@ -256,6 +260,48 @@ def format_unmapped(read: Read, rgid: str = "default") -> str:
     )
 
 
+def records_by_read(
+    records: Iterable[AlignmentRecord], reads: Sequence[Read]
+) -> dict[int, list[AlignmentRecord]]:
+    """Each read's records, keyed by the read's position in ``reads``. A
+    record's ``read_index`` is its read's stream index (``Read.index``),
+    which a read selector sets apart from the position; a record whose
+    index is unset (negative) or names none of ``reads`` falls back to its
+    name (the first read of that name), and one that matches neither is
+    left out."""
+    pos_of_index: dict[int, int] = {}
+    pos_of_name: dict[str, int] = {}
+    for i, r in enumerate(reads):
+        if r.index >= 0:
+            pos_of_index.setdefault(r.index, i)
+        pos_of_name.setdefault(r.name, i)
+    by_read: dict[int, list[AlignmentRecord]] = {}
+    for rec in records:
+        i = pos_of_index.get(rec.read_index) if rec.read_index >= 0 else None
+        if i is None:
+            i = pos_of_name.get(rec.qname)
+            if i is None:
+                continue
+        by_read.setdefault(i, []).append(rec)
+    return by_read
+
+
+def format_read_records(
+    recs: Sequence[AlignmentRecord], read: Read, seqdb: SeqDB, clipping: str,
+    rgid: str, genome: np.ndarray | None, samqv: tuple | None,
+) -> list[str]:
+    """The SAM lines of one read's records, its best-scoring record primary."""
+    best = min(range(len(recs)), key=lambda j: recs[j].score)
+    return [
+        format_sam_record(
+            rec, read, clipping, rgid=rgid, genome=genome,
+            genome_start=int(seqdb.starts[rec.contig_index]) if rec.contig_index >= 0 else 0,
+            is_primary=(j == best), samqv=samqv,
+        )
+        for j, rec in enumerate(recs)
+    ]
+
+
 def write_sam(
     records: Iterable[AlignmentRecord],
     reads: Sequence[Read],
@@ -272,34 +318,14 @@ def write_sam(
     for line in sam_header(seqdb, program_line, [movie_name]):
         out.write(line + "\n")
     rgid = read_group_id(movie_name)
-    # records keyed by read INDEX (duplicate read names are legal in FASTA;
-    # keying by name would silently drop records)
-    by_index: dict[int, list[AlignmentRecord]] = {}
-    by_name: dict[str, int] = {}
-    for i, r in enumerate(reads):
-        by_name.setdefault(r.name, i)
-    for rec in records:
-        idx = rec.read_index
-        if idx < 0 or idx >= len(reads):
-            idx = by_name.get(rec.qname, -1)
-            if idx < 0:
-                continue
-        by_index.setdefault(idx, []).append(rec)
+    # records keyed by read, not by name (duplicate read names are legal in
+    # FASTA; keying by name would silently drop records)
+    by_read = records_by_read(records, reads)
     unmapped_set = set(unmapped or ())
     for idx, rd in enumerate(reads):
-        recs = by_index.get(idx)
+        recs = by_read.get(idx)
         if recs:
-            best = min(range(len(recs)), key=lambda j: recs[j].score)
-            for j, rec in enumerate(recs):
-                out.write(
-                    format_sam_record(
-                        rec, rd, clipping, rgid=rgid, genome=genome,
-                        genome_start=int(seqdb.starts[rec.contig_index])
-                        if rec.contig_index >= 0 else 0,
-                        is_primary=(j == best),
-                        samqv=samqv,
-                    )
-                    + "\n"
-                )
+            for line in format_read_records(recs, rd, seqdb, clipping, rgid, genome, samqv):
+                out.write(line + "\n")
         elif print_unmapped and rd.name in unmapped_set:
             out.write(format_unmapped(rd, rgid=rgid) + "\n")

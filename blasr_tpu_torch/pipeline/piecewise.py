@@ -344,6 +344,7 @@ def run_mapping_piecewise(
         sub = MappingMetrics()
         r1, u1 = run_mapping(index, pass_through, base_params, metrics=sub, **run_kw)
         met.add(sub)
+        met.last_run_dp_cells = sub.last_run_dp_cells
         recs += list(r1)
         unmapped += list(u1)
     if segments:
@@ -362,6 +363,7 @@ def run_mapping_piecewise(
         sub = MappingMetrics()
         r2, u2 = run_mapping(index, segments, seg_params, metrics=sub, **run_kw)
         met.add(sub)
+        met.last_run_dp_cells = sub.last_run_dp_cells
         recs += list(r2)
         unmapped += list(u2)
 

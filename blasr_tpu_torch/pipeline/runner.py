@@ -5,7 +5,9 @@ length-bucketed batches go through ``Mapper.map_batch`` on ``device``
 while earlier batches finalize on the host (dispatch-ahead), records are
 converted to contig coordinates and filtered, and reads whose best record
 shows the narrow-band clipping signature are re-mapped through the wide
-unguided band (band escalation) keeping the better score. With
+unguided band (band escalation) keeping the better score. A caller may
+stream the records batch by batch (``on_batch``) and resume a run whose
+first batches were flushed (``skip_batches``). With
 ``best_n > 1`` each secondary (rank >= 1) passes the reference's host
 admission (``pipeline/secondary_refine.py``: SDP over the candidate's
 chain, the ``min_interval`` anchor gate, ``-maxScore`` on the SDP score)
@@ -21,6 +23,7 @@ refer to the forward read.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 from collections import deque
 from typing import Optional, Sequence
@@ -58,6 +61,11 @@ class MappingMetrics:
     n_unmapped: int = 0
     total_aligned_bases: int = 0
     total_dp_cells: int = 0
+    # the DP cells of the batches of the last run_mapping call that
+    # finished, its escalation pass aside (under piecewise mapping, the
+    # last inner run's): the figure -fullMetrics prints per read, which the
+    # JAX package takes from that call's own metrics. ``add`` leaves it
+    last_run_dp_cells: int = 0
     dispatch_seconds: float = 0.0   # host time enqueueing device work
     wait_seconds: float = 0.0       # host time blocked on the device + d2h
     finalize_seconds: float = 0.0   # host time turning results into records
@@ -85,7 +93,8 @@ class MappingMetrics:
         """Add ``other``'s counters and timers into these: the ``fields``
         named, else every one, the per-bucket counts too."""
         if fields is None:
-            fields = [f.name for f in dataclasses.fields(self) if f.name != "buckets"]
+            fields = [f.name for f in dataclasses.fields(self)
+                      if f.name not in ("buckets", "last_run_dp_cells")]
             for key, (n_batches, n_reads) in other.buckets.items():
                 bk = self.buckets.setdefault(key, [0, 0])
                 bk[0] += n_batches
@@ -150,6 +159,24 @@ def _escalation_candidates(best_by: dict, params) -> set:
     return names
 
 
+def passes_input_filters(read: Read, params: MappingParams) -> bool:
+    """The reference's length and quality input filters: a read that fails
+    is reported unaligned without entering the pipeline."""
+    if len(read) < params.min_read_length:
+        return False
+    return not (
+        params.min_avg_qual > 0 and read.qual is not None
+        and len(read.qual) and float(read.qual.mean()) < params.min_avg_qual
+    )
+
+
+def _n_parameters(fn) -> int:
+    try:
+        return len(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        return 0
+
+
 def _check_supported(params: MappingParams) -> None:
     unsupported = {
         "adaptive_cd": params.adaptive_cd,
@@ -173,6 +200,9 @@ def run_mapping(
     metrics: MappingMetrics | None = None,
     clock: StageClock | None = None,
     fm=None,
+    on_batch=None,
+    skip_batches: int = 0,
+    deferred_scores: dict | None = None,
 ) -> tuple[list[AlignmentRecord], list[str]]:
     """Map reads on ``device``; returns (alignments, unmapped read names).
 
@@ -183,8 +213,26 @@ def run_mapping(
     ``index`` may then hold no suffix array. With ``auto_segment`` on,
     a run holding reads longer than ``max_read_len`` goes through
     ``pipeline/piecewise.run_mapping_piecewise``, which maps those reads
-    as segments and stitches them."""
-    if params.auto_segment and reads and max(len(r) for r in reads) > params.max_read_len:
+    as segments and stitches them.
+
+    ``on_batch(bi, records, unmapped_names[, deferred])`` fires after each
+    batch finalizes, in batch order; a callback of 4 parameters also gets
+    ``deferred``, a dict from each read name held back from the stream to
+    its narrow-pass records. Band escalation may still replace those
+    reads' records, so their resolved records go out in one final
+    ``on_batch(-1, records, [])`` (with an empty ``deferred``): the
+    streamed records are the returned ones. ``skip_batches`` skips the
+    first batches of the deterministic batching (a resumed run).
+    ``deferred_scores`` gives the best
+    narrow-pass score of each read held back in a skipped batch: those
+    reads join this run's escalation pass, so it maps the run's whole
+    candidate set, and the records of those the wide band improves are
+    delivered in the final call. With ``on_batch`` or ``skip_batches``,
+    reads longer than ``max_read_len`` are truncated to it, as the JAX
+    package does, not mapped piecewise."""
+    streamed = on_batch is not None or skip_batches > 0
+    if (params.auto_segment and not streamed and reads
+            and max(len(r) for r in reads) > params.max_read_len):
         # segmentation bounds each DP's indel drift (W/2 per segment) and
         # the stitcher restores whole-read records
         from blasr_tpu_torch.pipeline.piecewise import run_mapping_piecewise
@@ -200,24 +248,20 @@ def run_mapping(
     out: list[AlignmentRecord] = []
     unmapped: list[str] = []
     if params.min_read_length > 0 or params.min_avg_qual > 0:
-        # reference length/quality input filters: rejected reads are
-        # reported unaligned without entering the pipeline
-        def _ok(r):
-            if len(r) < params.min_read_length:
-                return False
-            return not (
-                params.min_avg_qual > 0 and r.qual is not None
-                and len(r.qual) and float(r.qual.mean()) < params.min_avg_qual
-            )
-
-        unmapped.extend(r.name for r in reads if not _ok(r))
-        reads = [r for r in reads if _ok(r)]
+        unmapped.extend(r.name for r in reads if not passes_input_filters(r, params))
+        reads = [r for r in reads if passes_input_filters(r, params)]
 
     inflight: deque = deque()
+    escalate = params.band_escalation and bool(params.narrow_band)
+    # streamed == returned: hold back the reads escalation may replace
+    defer_stream = on_batch is not None and escalate
+    deferred_names: set[str] = set()
+    on_batch_4 = on_batch is not None and _n_parameters(on_batch) >= 4
+    first_pass_cells = 0
 
     def drain_one():
         t0 = time.time()
-        batch, res = inflight.popleft()
+        bi, batch, res = inflight.popleft()
         # one d2h copy per batch; it waits for the batch's device work
         res = res._replace(wire=res.wire.cpu().numpy())
         t1 = time.time()
@@ -225,6 +269,20 @@ def run_mapping(
         out_b, unm_b = _finalize_batch(mapper, batch, res, met)
         out.extend(out_b)
         unmapped.extend(unm_b)
+        if on_batch is not None:
+            stream_b, held = out_b, {}
+            if defer_stream:
+                dn = _escalation_candidates(_best_by_read(out_b), params)
+                if dn:
+                    deferred_names.update(dn)
+                    for r in out_b:
+                        if r.qname in dn:
+                            held.setdefault(r.qname, []).append(r)
+                    stream_b = [r for r in out_b if r.qname not in dn]
+            if on_batch_4:
+                on_batch(bi, stream_b, unm_b, held)
+            else:
+                on_batch(bi, stream_b, unm_b)
         met.finalize_seconds += time.time() - t1
         met.n_batches += 1
         met.n_records += len(out_b)
@@ -232,15 +290,17 @@ def run_mapping(
             if r.path is not None:
                 met.total_aligned_bases += r.path.n_aligned
 
-    for batch in batch_reads(reads, params.batch_size, params.max_read_len):
+    for bi, batch in enumerate(batch_reads(reads, params.batch_size, params.max_read_len)):
+        if bi < skip_batches:
+            continue
         t0 = time.time()
         res = mapper.map_batch(batch.codes, batch.lengths, batch.qual)
-        inflight.append((batch, res))
+        inflight.append((bi, batch, res))
         met.dispatch_seconds += time.time() - t0
         bk = met.buckets.setdefault(int(batch.codes.shape[1]), [0, 0])
         bk[0] += 1
         bk[1] += int((batch.indices >= 0).sum())
-        met.total_dp_cells += (
+        first_pass_cells += (
             (2 * batch.max_len + params.target_pad - 1)
             * params.band_width_for(batch.max_len)
             * params.dp_candidates
@@ -250,12 +310,16 @@ def run_mapping(
             drain_one()
     while inflight:
         drain_one()
+    met.total_dp_cells += first_pass_cells
 
-    if params.band_escalation and params.narrow_band:
+    carried = deferred_scores if escalate and deferred_scores else {}
+    if escalate:
         # re-map only the reads the narrow band visibly clipped, through the
         # length-scaled wide unguided band, and keep the better best score
         best_by = _best_by_read(out)
-        retry_names = _escalation_candidates(best_by, params)
+        best_score = {n: r.score for n, r in best_by.items()}
+        best_score.update(carried)
+        retry_names = _escalation_candidates(best_by, params) | set(carried)
         retry_reads = [r for r in reads if r.name in retry_names]
         if retry_reads:
             esc = dataclasses.replace(
@@ -274,14 +338,23 @@ def run_mapping(
             best2: dict[str, int] = {}
             for r in r2:
                 best2[r.qname] = min(best2.get(r.qname, 0), r.score)
-            use_retry = {n for n, s2 in best2.items() if s2 < best_by[n].score}
+            use_retry = {n for n, s2 in best2.items() if s2 < best_score[n]}
             out = [r for r in out if r.qname not in use_retry] + [
                 r for r in r2 if r.qname in use_retry
             ]
+    late = deferred_names | set(carried)
+    if on_batch is not None and late:
+        stream_extra = [r for r in out if r.qname in late]
+        if stream_extra:
+            if on_batch_4:
+                on_batch(-1, stream_extra, [], {})
+            else:
+                on_batch(-1, stream_extra, [])
     order = {r.name: i for i, r in enumerate(reads)}
     out.sort(key=lambda a: (order.get(a.qname, 1 << 30), a.score))
     met.n_reads = len(reads)
     met.n_unmapped = len(unmapped)
+    met.last_run_dp_cells = first_pass_cells
     met.wall_seconds = time.time() - t_run0
     return out, unmapped
 

@@ -110,12 +110,23 @@ Phases, each of which must pass:
      within 0.01 of the JAX package's; the host seconds of stitching and
      of the secondary admission apart from the run's; then the CLI with
      -alignContigs on the 0.8 Mb contig and with -m 4 on 50 long reads,
-     each printing the library's lines.
+     each printing the library's lines;
+ 14. the CLI's host surface: (A) one CLI process on phase 4's 256 FASTA
+     reads with the read selectors, compatibility flags that change
+     nothing and the four diagnostic writers (-anchors, its searches on
+     the card; -fullMetrics, -clusters, -lcpBounds), each file equal to
+     the JAX CLI's (tools/jax_cli_reference.json cli_host: 0 differing
+     reads, the text equal); (B) -resume on the CLR FASTQ corpus, killed
+     (SIGKILL) once its manifest reports 3 batches written, then run
+     again to its end: the file's lines are the JAX CLI's uninterrupted
+     run's (resume: none missing, none repeated, 0 differing).
 The line before the last is a JSON object with each kernel's launches
 (each on its own path: the single-quality DP and the gathers on config 2;
 K1, K2 and K3 also on config 4's timed run, ``launches_config4``,
 on phase 12's timed run, ``launches_k15`` and ``launches_k18``, and on
-phase 13's runs, ``launches_config5`` and ``launches_long``),
+phase 13's runs, ``launches_config5`` and ``launches_long``; on phase
+14's processes, ``launches_cli_host`` for K1 without quality, K2 and K3
+and ``launches_resume`` for K1 with single quality, K2 and K3),
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and the exit code is not 0. Needs one CUDA card.
 """
@@ -178,6 +189,17 @@ SA_REFERENCE = os.path.join(HERE, "tools", "jax_sa_reference.json")
 # the same for config 5's -m 4 and SAM lines and the long reads' -m 4 lines
 # (tools/jax_piecewise_reference.py)
 PIECEWISE_REFERENCE = os.path.join(HERE, "tools", "jax_piecewise_reference.json")
+# the JAX CLI's files for phase 14 (tools/jax_cli_reference.py): command A's
+# -out lines and side files on the 256 FASTA reads, and the -m 4 lines of
+# the uninterrupted CLI_FLAGS run on the CLR FASTQ corpus
+CLI_REFERENCE = os.path.join(HERE, "tools", "jax_cli_reference.json")
+# command A (after CLI_FLAGS): the read selectors, compatibility flags that
+# change nothing, and the four diagnostic writers, each given its file
+CLI_HOST_SELECTORS = ["-start", "3", "-stride", "2", "-subsample", "0.8", "-randomSeed", "7"]
+CLI_HOST_COMPAT = ["-nproc", "16", "-V", "1", "-affineAlign", "-noSplitSubreads",
+                   "-maxLCPLength", "16", "-useQuality"]
+CLI_HOST_SIDE_FILES = ("fullMetrics", "clusters", "lcpBounds", "anchors")
+RESUME_KILL_AFTER = 3     # batches the manifest must report done before the kill
 RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0, "config3": 0,
                      "config2": 0, "config3_sam": 0, "config4": 0, "k15": 0, "k18": 0,
                      "config5": 0, "config5_sam": 0, "long": 0}
@@ -248,6 +270,33 @@ def n_secondaries(records) -> int:
     """Records beyond the first of their read: at best_n 2, the rank-1
     records emitted (a read's records come from distinct ranks)."""
     return len(records) - len({r.qname for r in records})
+
+
+def text_digests(lines, names=None) -> dict:
+    """A text file's lines as the JAX reference keeps them: their count,
+    the sha256 of the lines in order and sorted, and with ``names`` (each
+    line's read name) ``m4_digests`` of the lines by read."""
+    out = {"lines": len(lines),
+           "sha256": hashlib.sha256("".join(ln + "\n" for ln in lines).encode()).hexdigest(),
+           "sha256_sorted": sorted_sha256(lines)}
+    if names is not None:
+        out["digests"] = m4_digests(zip(names, lines))
+    return out
+
+
+def side_file_names(kind: str, lines, selected) -> list | None:
+    """The read name of each line of a phase-14 file: an -m 4 line's qname
+    less its /0_<len> suffix, the first field of an -anchors line and of a
+    -fullMetrics row (its header row under "Read"), the read of each pair
+    of -lcpBounds lines (forward, then reverse complement, in read order);
+    None for -clusters, whose rows name no read."""
+    if kind == "out":
+        return [ln.split()[0].rpartition("/")[0] for ln in lines]
+    if kind in ("anchors", "fullMetrics"):
+        return [ln.split()[0] for ln in lines]
+    if kind == "lcpBounds":
+        return [selected[i // 2] for i in range(len(lines))]
+    return None
 
 
 def sorted_sha256(lines) -> str:
@@ -941,11 +990,12 @@ def load_references() -> dict:
     (tools/jax_m5_reference.py), the SAM lines of configs 2 and 3
     (tools/jax_sam_reference.py), config 4's -m 4 on the FASTA corpus
     (tools/jax_fm_reference.py), -m 4 with seeds of k = 15 and 18
-    (tools/jax_sa_reference.py) and config 5's and the long reads' lines
-    (tools/jax_piecewise_reference.py), all written on the CPU."""
+    (tools/jax_sa_reference.py), config 5's and the long reads' lines
+    (tools/jax_piecewise_reference.py) and phase 14's CLI files
+    (tools/jax_cli_reference.py), all written on the CPU."""
     refs = {}
     for path in (M4_REFERENCE, M5_REFERENCE, SAM_REFERENCE, FM_REFERENCE, SA_REFERENCE,
-                 PIECEWISE_REFERENCE):
+                 PIECEWISE_REFERENCE, CLI_REFERENCE):
         with open(path) as f:
             refs.update(json.load(f))
     return refs
@@ -1774,6 +1824,190 @@ def check_piecewise(genome_fa: str, index, refs: dict, out_dir) -> dict:
     return out
 
 
+def compare_text(label: str, lines, ref: dict, names) -> dict:
+    """A file's lines against the JAX reference's digests of it: the reads
+    whose lines differ (a per-read digest that differs, or lines on one
+    side only; every line counts where the lines name no read), and
+    whether the whole text and its sorted lines are the reference's."""
+    got = text_digests(lines, names)
+    if "digests" in ref:
+        keys = set(got["digests"]) | set(ref["digests"])
+        diff = sorted(k for k in keys if got["digests"].get(k) != ref["digests"].get(k))
+    else:
+        diff = [] if got["sha256_sorted"] == ref["sha256_sorted"] else ["(rows differ)"]
+    same = got["sha256"] == ref["sha256"]
+    log(f"  {label}: {len(lines)} lines (JAX {ref['lines']}), {len(diff)} reads differ"
+        f"{': ' + ', '.join(diff[:5]) if diff else ''}; text {'equal' if same else 'differs'}")
+    return {"lines": len(lines), "reads_differing": len(diff), "text_equal": same,
+            "first_differing": diff[:5]}
+
+
+def check_cli_host(genome_fa: str, refs: dict, out_dir) -> dict:
+    """Phase 14 (A): command A through the CLI on the card, on phase 4's 256
+    FASTA reads: CLI_FLAGS with the read selectors (CLI_HOST_SELECTORS),
+    compatibility flags that change nothing (CLI_HOST_COMPAT) and the four
+    diagnostic writers. Its -out lines and each side file (-fullMetrics
+    less its # line of clock readings; -anchors, whose searches run on the
+    card) must equal the JAX CLI's (tools/jax_cli_reference.json
+    cli_host): 0 differing reads, the whole text equal; the -fullMetrics
+    rows name the reads the JAX CLI selected. The process must launch K1
+    without quality, K2 and K3."""
+    from blasr_tpu_torch.bench import BENCH_DIR
+
+    ref = refs["cli_host"]
+    reads_cli = os.path.join(HERE, ref["reads_file"])
+    with open(reads_cli, "rb") as f:
+        md5 = hashlib.md5(f.read()).hexdigest()
+    if md5 != ref["reads_md5"]:
+        raise AssertionError(f"cli_host: reads md5 {md5} != the reference's {ref['reads_md5']}")
+    paths = {kind: os.path.join(BENCH_DIR, f"cli_host.{kind}") for kind in CLI_HOST_SIDE_FILES}
+    extra = [*CLI_HOST_SELECTORS, *CLI_HOST_COMPAT,
+             *[a for kind in CLI_HOST_SIDE_FILES for a in (f"-{kind}", paths[kind])]]
+    out_lines, metrics, secs = run_cli(reads_cli, genome_fa, "cli_host", extra)
+    texts = {"out": out_lines}
+    for kind, path in paths.items():
+        with open(path) as f:
+            texts[kind] = [ln for ln in f.read().splitlines()
+                           if not (kind == "fullMetrics" and ln.startswith("#"))]
+    if out_dir:
+        for kind, lines in texts.items():
+            with open(os.path.join(out_dir, f"cli_host.{kind}"), "w") as f:
+                f.writelines(ln + "\n" for ln in lines)
+    log(f"phase 14 (A): CLI {' '.join(extra[:len(CLI_HOST_SELECTORS) + len(CLI_HOST_COMPAT)])} "
+        f"with the four side files on {ref['reads_file']}: {len(ref['selected'])} reads selected "
+        f"(JAX), {secs:.1f} s (process included)")
+    files = {kind: compare_text(kind, lines, ref["files"][kind],
+                                side_file_names(kind, lines, ref["selected"]))
+             for kind, lines in texts.items()}
+    rows = [ln.split()[0] for ln in texts["fullMetrics"][1:]]
+    bad = [k for k, v in files.items() if v["reads_differing"] or not v["text_equal"]]
+    if bad or rows != ref["selected"]:
+        raise AssertionError(f"command A's files differ from the JAX CLI's: {bad}; selected "
+                             f"{len(rows)} reads against the JAX CLI's {len(ref['selected'])}")
+    dp = metrics["dpLaunches"]
+    launches = metrics["kernelLaunches"]
+    if not any(k.endswith("/none") for k in dp) or any(not k.endswith("/none") for k in dp) or (
+            min(launches.values()) <= 0):
+        raise AssertionError(f"command A did not launch K1 without quality, K2 and K3: "
+                             f"{launches} {dp}")
+    log(f"  launches {launches}, DP {dp}")
+    return {"seconds": secs, "selected": len(rows), "files": files, "launches": launches,
+            "dp_launches": dp, "index_seconds": metrics["indexLoadSeconds"],
+            "map_seconds": metrics["mapSeconds"]}
+
+
+def check_resume(genome_fa: str, reads_fq: str, refs: dict, out_dir) -> dict:
+    """Phase 14 (B): -resume on the card. ``CLI_FLAGS -m 4 -resume`` on the
+    CLR FASTQ corpus starts in its own process and is killed (SIGKILL) once
+    its manifest reports RESUME_KILL_AFTER batches written; the kill must
+    land mid-run (that many batches or more, fewer than all, counted with
+    batch_reads). The same command then runs to its end. The file's lines
+    must be the JAX CLI's uninterrupted run's (tools/jax_cli_reference.json
+    resume): the sorted text equal, no read missing, none repeated, 0
+    differing. The resumed process must launch K1 with single quality, K2
+    and K3."""
+    import signal
+
+    from blasr_tpu_torch.bench import BENCH_DIR
+    from blasr_tpu_torch.io.batching import batch_reads, read_records
+    from blasr_tpu_torch.pipeline.runner import passes_input_filters
+
+    ref = refs["resume"]
+    with open(reads_fq, "rb") as f:
+        md5 = hashlib.md5(f.read()).hexdigest()
+    if md5 != ref["reads_md5"]:
+        raise AssertionError(f"resume: reads md5 {md5} != the reference's {ref['reads_md5']}")
+    params = cli_params(reads_fq, genome_fa)
+    reads = [r for r in read_records(reads_fq) if passes_input_filters(r, params)]
+    total = len(list(batch_reads(reads, params.batch_size, params.max_read_len)))
+    out = os.path.join(BENCH_DIR, "resume.m4")
+    manifest = out + ".resume.json"
+    for path in (out, manifest):
+        if os.path.exists(path):
+            os.remove(path)
+
+    def cmd(tag):
+        return [sys.executable, "-m", "blasr_tpu_torch.cli.blasr", reads_fq, genome_fa,
+                *CLI_FLAGS, "-resume", "-out", out,
+                "-metrics", os.path.join(BENCH_DIR, f"resume_{tag}.metrics.json")]
+
+    t0 = time.time()
+    with open(os.path.join(BENCH_DIR, "resume_killed.stderr"), "w") as err:
+        proc = subprocess.Popen(cmd("killed"), cwd=HERE, stdout=subprocess.DEVNULL, stderr=err)
+        state = {}
+        try:
+            while proc.poll() is None and time.time() - t0 < 600:
+                try:
+                    with open(manifest) as f:
+                        state = json.load(f)
+                except (OSError, ValueError):
+                    state = {}
+                if state.get("batches_done", 0) >= RESUME_KILL_AFTER:
+                    break
+                time.sleep(0.05)
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGKILL)
+            rc_killed = proc.wait(timeout=120)
+    killed_s = time.time() - t0
+    with open(manifest) as f:
+        state = json.load(f)
+    file_bytes = os.path.getsize(out)
+    log(f"phase 14 (B): -resume on the CLR FASTQ corpus killed (rc {rc_killed}) after "
+        f"{killed_s:.1f} s with {state['batches_done']} of {total} batches written, "
+        f"{len(state['deferred'])} reads held back for escalation, -out {file_bytes} bytes "
+        f"against the manifest's {state['out_bytes']}")
+    if rc_killed != -signal.SIGKILL or not RESUME_KILL_AFTER <= state["batches_done"] < total:
+        raise AssertionError(f"the kill did not land mid-run: rc {rc_killed}, "
+                             f"{state['batches_done']} of {total} batches written")
+    t1 = time.time()
+    proc = subprocess.run(cmd("resumed"), cwd=HERE, capture_output=True, text=True,
+                          timeout=600)
+    resumed_s = time.time() - t1
+    if proc.returncode != 0:
+        raise AssertionError(f"the resumed CLI failed ({proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    with open(out) as f:
+        lines = f.read().splitlines()
+    with open(os.path.join(BENCH_DIR, "resume_resumed.metrics.json")) as f:
+        metrics = json.load(f)
+    with open(manifest) as f:
+        final = json.load(f)
+    if out_dir:
+        with open(os.path.join(out_dir, "resume.m4"), "w") as f:
+            f.writelines(ln + "\n" for ln in lines)
+    # best_n 1: one line a read at most, so a read named twice is a repeat
+    names = side_file_names("out", lines, None)
+    got = m4_digests(zip(names, lines))
+    missing = sorted(set(ref["digests"]) - set(got))
+    repeated = len(names) - len(set(names))
+    diff = sorted(n for n in set(got) | set(ref["digests"])
+                  if got.get(n) != ref["digests"].get(n))
+    same_sorted = sorted_sha256(lines) == ref["sha256_sorted"]
+    log(f"  resumed in {resumed_s:.1f} s (process included; {metrics['stages']['n_batches']} "
+        f"batches mapped): {len(lines)} lines (JAX {ref['records']}), {len(missing)} reads "
+        f"missing, {repeated} repeated, {len(diff)} differ, sorted sha256 "
+        f"{'equal' if same_sorted else 'differs'}; manifest {final['batches_done']} batches, "
+        f"{len(final['deferred'])} held back")
+    if missing or repeated or diff or not same_sorted:
+        raise AssertionError(f"the resumed file is not the JAX CLI's uninterrupted run: "
+                             f"{len(missing)} missing, {repeated} repeated, {len(diff)} differ "
+                             f"{diff[:5]}")
+    dp = metrics["dpLaunches"]
+    launches = metrics["kernelLaunches"]
+    if not any(k.endswith("/single") for k in dp) or any(
+            not k.endswith("/single") for k in dp) or min(launches.values()) <= 0:
+        raise AssertionError(f"the resumed process did not launch K1 with single quality, K2 "
+                             f"and K3: {launches} {dp}")
+    log(f"  resumed process launches {launches}, DP {dp}")
+    return {"batches": total, "killed_after_s": killed_s, "killed_at_batches": state["batches_done"],
+            "held_back_at_kill": len(state["deferred"]), "out_bytes_at_kill": file_bytes,
+            "manifest_out_bytes_at_kill": state["out_bytes"], "resumed_s": resumed_s,
+            "resumed_batches": metrics["stages"]["n_batches"], "lines": len(lines),
+            "missing": len(missing), "repeated": repeated, "reads_differing": len(diff),
+            "launches": launches, "dp_launches": dp}
+
+
 def run(out_path: str | None) -> int:
     import torch
 
@@ -1924,6 +2158,14 @@ def run(out_path: str | None) -> int:
     mark("13")
     piecewise = check_piecewise(genome_fa, index, refs, out_dir)
 
+    # ---- phase 14: the CLI's host surface: selectors, compatibility flags,
+    # diagnostic writers, and -resume killed and resumed ----
+    mark("14")
+    cli_host = check_cli_host(genome_fa, refs, out_dir)
+    resume = check_resume(genome_fa, reads_fq, refs, out_dir)
+    phase14_s = time.time() - t_start - phase_times["14"]
+    log(f"phase 14: {phase14_s:.1f} s")
+
     # ---- the kernels line ----
     def dp_row(mode):
         return next(r for r in dp_rows if (r["W"], r["L"], r["mode"]) == (*MAIN_DP_SHAPE, mode))
@@ -1947,8 +2189,10 @@ def run(out_path: str | None) -> int:
                 "launches_k15": sa_seeds["k15"]["launches"]["banded_dp"],
                 "launches_k18": sa_seeds["k18"]["launches"]["banded_dp"],
                 "launches_config5": piecewise["config5"]["launches"]["banded_dp"],
-                "launches_long": piecewise["long"]["launches"]["banded_dp"]}
+                "launches_long": piecewise["long"]["launches"]["banded_dp"],
+                "launches_cli_host": cli_host["launches"]["banded_dp"]}
                if mode == "none" else {}),
+            **({"launches_resume": resume["launches"]["banded_dp"]} if mode == "single" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in dp_rows if r["mode"] == mode),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
@@ -1964,6 +2208,8 @@ def run(out_path: str | None) -> int:
             "launches_k18": sa_seeds["k18"]["launches"][name],
             "launches_config5": piecewise["config5"]["launches"][name],
             "launches_long": piecewise["long"]["launches"][name],
+            "launches_cli_host": cli_host["launches"][name],
+            "launches_resume": resume["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in g_rows[name]),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1993,7 +2239,8 @@ def run(out_path: str | None) -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
     if any(k["launches"] <= 0 or min(k.get(f"launches_{c}", 1) for c in (
-            "config4", "k15", "k18", "config5", "long")) <= 0 for k in kernels):
+            "config4", "k15", "k18", "config5", "long", "cli_host", "resume")) <= 0
+           for k in kernels):
         raise AssertionError(f"a kernel never ran on its path: {kernels}")
     log(f"total {time.time() - t_start:.0f} s")
     if out_path:
@@ -2007,7 +2254,8 @@ def run(out_path: str | None) -> int:
                 "fasta": fasta, "cli": {k: v for k, v in cli.items() if k != "m4"},
                 "profile": prof, "fastq": fastq, "cli_sam": sam, "guided": guided,
                 "matrix": matrix, "config3": config3, "config2": config2, "config4": config4,
-                "sa_seeds": sa_seeds, "piecewise": piecewise, "phase_start_s": phase_times,
+                "sa_seeds": sa_seeds, "piecewise": piecewise, "cli_host": cli_host,
+                "resume": resume, "phase14_s": phase14_s, "phase_start_s": phase_times,
                 "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
                 "jax_guided_accuracy_cpu": JAX_GUIDED_ACCURACY,
                 "seconds": time.time() - t_start,

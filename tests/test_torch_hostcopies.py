@@ -5,8 +5,9 @@ The port imports nothing of ``blasr_tpu``; these tests hold each copy it
 keeps (params, sim, io, index, cli flags, native, the secondary admission,
 the verbose and SAM writers, BAM, the FM index, the reference .bwt
 reader, the reference .sa file, the prefix table and the index built
-around a .sa) equal to the module it was copied from, on the same inputs
-or, for the four copied whole, line for line."""
+around a .sa, the CLI's diagnostic writers and its read selection) equal
+to the module it was copied from, on the same inputs or, for the four
+copied whole, line for line."""
 
 import ast
 import dataclasses
@@ -299,10 +300,14 @@ def test_whole_module_copies_equal_jax(module):
 
 
 def test_sam_writer_copy_equals_jax():
-    """``output/sam_writer.py``: every function but the two CIGAR routes is
-    the JAX package's code; those two call the port's C++ helpers, which
-    never return None, so the JAX writer's numpy CIGAR route
-    (``_xeq_runs``) has no copy."""
+    """``output/sam_writer.py``: every function but the two CIGAR routes and
+    ``write_sam`` is the JAX package's code. The CIGAR routes call the
+    port's C++ helpers, which never return None, so the JAX writer's numpy
+    CIGAR route (``_xeq_runs``) has no copy. ``write_sam`` finds each
+    record's read by stream index (``records_by_read``) and formats a
+    read's records with ``format_read_records``, which the resumable
+    writer shares; where stream index and position agree its text is the
+    JAX writer's (``tests/test_torch_sam.py``, ``test_torch_bam.py``)."""
 
     def functions(pkg):
         with open(os.path.join(REPO, pkg, "output/sam_writer.py")) as f:
@@ -312,9 +317,10 @@ def test_sam_writer_copy_equals_jax():
                 for n in tree.body if isinstance(n, ast.FunctionDef)}
 
     jf, tf = functions("blasr_tpu"), functions("blasr_tpu_torch")
-    assert set(jf) - set(tf) == {"_xeq_runs"} and set(tf) <= set(jf)
-    same = set(tf) - {"_cigar_string", "format_sam_record"}
-    assert len(same) == 6
+    added = {"records_by_read", "format_read_records"}
+    assert set(jf) - set(tf) == {"_xeq_runs"} and set(tf) - set(jf) == added
+    same = set(tf) - {"_cigar_string", "format_sam_record", "write_sam"} - added
+    assert len(same) == 5
     for name in same:
         assert tf[name] == jf[name], name
 
@@ -380,3 +386,75 @@ def test_ref_bwt_reader_equal_jax():
     for contigs in ([("c1", z["c1"]), ("c2", z["c2"])], [("c1", z["c1"])]):
         assert bwtfile.ref_bwt_genome_matches(b, contigs) == jbwt.ref_bwt_genome_matches(a, contigs)
     assert bwtfile.ref_bwt_genome_matches(b, [("c1", z["c1"]), ("c2", z["c2"])])
+
+
+def test_diagnostics_copy_equals_jax():
+    """``pipeline/diagnostics.py``: ``write_clusters`` and
+    ``write_lcp_bounds`` are the JAX package's code; ``write_full_metrics``
+    prints the JAX rows where each read's stream index is its position (on
+    hand-built records: two on one read, one on another, a read without
+    any), with Cells from ``last_run_dp_cells``, which the JAX function
+    reads as ``total_dp_cells``."""
+    import io
+    from types import SimpleNamespace
+
+    from blasr_tpu.pipeline import diagnostics as jdiag
+    from blasr_tpu_torch.pipeline import diagnostics as tdiag
+
+    def functions(pkg):
+        with open(os.path.join(REPO, pkg, "pipeline/diagnostics.py")) as f:
+            tree = ast.parse(f.read())
+        return {n.name: ast.unparse(n) for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+    jf, tf = functions("blasr_tpu"), functions("blasr_tpu_torch")
+    assert set(jf) == set(tf)
+    for name in ("write_clusters", "write_lcp_bounds"):
+        assert tf[name] == jf[name], name
+    rng = np.random.default_rng(4)
+    reads = [SimpleNamespace(name=f"r{i}", index=i, codes=rng.integers(0, 4, 100 + i))
+             for i in range(4)]
+    recs = [SimpleNamespace(qname=f"r{i}", read_index=i, score=s, mapqv=q, qstart=a, qend=b)
+            for i, s, q, a, b in ((0, -300, 40, 3, 90), (0, -410, 25, 0, 97),
+                                  (2, -150, 60, 10, 60))]
+    met = SimpleNamespace(dispatch_seconds=0.5, finalize_seconds=0.25, wall_seconds=2.0,
+                          total_dp_cells=123457, last_run_dp_cells=123457)
+    outs = []
+    for mod in (jdiag, tdiag):
+        buf = io.StringIO()
+        mod.write_full_metrics(buf, reads, recs, ["r1", "r3"], met)
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] and len(outs[0].splitlines()) == 6
+
+
+SELECTOR_ARGV = [["-start", "3"], ["-stride", "4"], ["-start", "2", "-stride", "3"],
+                 ["-subsample", "0.5", "-randomSeed", "11"],
+                 ["-start", "3", "-stride", "2", "-subsample", "0.8", "-randomSeed", "7"],
+                 ["-maxReadLength", "130"], ["-maxReadIndex", "7"], ["-readIndex", "5"],
+                 ["-readIndices", "2,9,11"],
+                 ["-stride", "2", "-maxReadLength", "140", "-readIndices", "0,4,6,9"]]
+
+
+@pytest.mark.parametrize("argv", SELECTOR_ARGV, ids=[" ".join(a) for a in SELECTOR_ARGV])
+def test_read_selection_equals_jax(tmp_path, monkeypatch, argv):
+    """``cli/blasr.select_reads`` keeps the reads the JAX CLI maps (its
+    ``main`` run with the index load and the mapping stubbed, the reads it
+    hands to ``run_mapping`` captured), in the same order."""
+    from types import SimpleNamespace
+
+    from blasr_tpu.io.fasta import write_fasta
+    from blasr_tpu.pipeline import runner as jrunner
+    from blasr_tpu_torch.cli import blasr as tcli
+
+    rng = np.random.default_rng(6)
+    path = str(tmp_path / "r.fa")
+    write_fasta(path, [(f"q{i}", rng.integers(0, 4, 100 + 3 * i).astype(np.uint8))
+                       for i in range(16)])
+    captured = []
+    monkeypatch.setattr(jart, "load_index", lambda *a, **k: SimpleNamespace())
+    monkeypatch.setattr(jrunner, "run_mapping",
+                        lambda index, reads, params, **kw: (captured.append(reads), ([], []))[1])
+    full = [path, "g.fa", *argv, "-out", str(tmp_path / "o.m4")]
+    assert jcli.main(full) == 0
+    port = tcli.select_reads(batching.read_records(path), tcli.build_parser().parse_args(full))
+    assert [r.name for r in port] == [r.name for r in captured[0]]
+    assert [r.index for r in port] == [r.index for r in captured[0]]

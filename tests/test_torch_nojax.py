@@ -3,9 +3,10 @@
 FASTQ reads end to end on the CPU to -m 4 lines, through the library and
 through the CLI (also with ``-useGuidedAlign -scoreMatrix``, to -m 5
 lines with ``-bestn 2``, to SAM and BAM with ``-sam``, anchored through
-the FM index with ``-bwt``, its bundle built and then loaded, and with
+the FM index with ``-bwt``, its bundle built and then loaded, with
 seeds of 18 bases from a reference-format ``.sa`` file and of 30 with
-``-nucmer``), and no file of the port imports either package."""
+``-nucmer``, with ``-resume``, and with read selectors and the four
+diagnostic writers), and no file of the port imports either package."""
 
 import io
 import json
@@ -110,6 +111,7 @@ for run in runs:                       # one CLI run each: reads,out[,flags]
 """
 
 CLI_FORMATS = ("fasta", "fastq", "sam")
+SIDE_FILES = ("anchors", "fullMetrics", "clusters", "lcpBounds")
 # guided bands and a score matrix (transitions at -2), its 25 values
 # comma-separated after '=' since the first one is negative
 GUIDED_MATRIX = ("-useGuidedAlign -scoreMatrix="
@@ -163,6 +165,12 @@ def cli_outputs(tmp_path_factory):
     write_fasta(str(tmp_path / "c.fasta"), [("ctg", genome[30_000:36_000])])
     runs.append(f"{tmp_path / 'c.fasta'},{tmp_path / 'contigs.m4'},-alignContigs")
     runs.append(f"{tmp_path / 'c.fasta'},{tmp_path / 'long.m4'},-maxReadLen 2048")
+    # -resume (its manifest beside the output); the selectors with -nproc and
+    # the four diagnostic writers
+    runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'resume.m4'},-resume")
+    side = " ".join(f"-{kind} {tmp_path / ('selected.' + kind)}" for kind in SIDE_FILES)
+    runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'selected.m4'},-start 1 -stride 2 "
+                f"-nproc 16 {side}")
     proc = subprocess.run(
         [sys.executable, "-c", CLI_SCRIPT, str(tmp_path / "g.fa"),
          "-m", "4", "-header", "-device", "cpu", "-minMatch", "10",
@@ -175,9 +183,13 @@ def cli_outputs(tmp_path_factory):
     header, recs = read_bam(str(tmp_path / "bam.bam"))
     assert (tmp_path / "g.btfm.npz").exists()
     return {"bam": header + ["\t".join(r) for r in recs],
+            "manifest": json.loads((tmp_path / "resume.m4.resume.json").read_text()),
+            **{kind: (tmp_path / f"selected.{kind}").read_text().splitlines()
+               for kind in SIDE_FILES},
             **{run: (tmp_path / f"{run}.m4").read_text().splitlines()
                for run in (*CLI_FORMATS, "guided_matrix", "bestn2_m5", "sam_hard", "sam_soft",
-                           "bwt_built", "bwt_loaded", "sa_k18", "nucmer", "contigs", "long")}}
+                           "bwt_built", "bwt_loaded", "sa_k18", "nucmer", "contigs", "long",
+                           "resume", "selected")}}
 
 
 def test_cli_writes_m4_with_jax_blocked(cli_outputs):
@@ -223,6 +235,21 @@ def test_cli_maps_long_queries_with_jax_blocked(cli_outputs, run):
     f = lines[1].split()
     assert f[0] == "ctg/0_6000" and f[5:12] == ["0", "6000", "6000", "0", "30000", "36000",
                                                 "40000"]
+
+
+def test_cli_resumes_and_selects_with_jax_blocked(cli_outputs):
+    """-resume writes the plain run's lines, its manifest recording every
+    batch written and no read held back; -start 1 -stride 2 with -nproc 16
+    maps q1, q3 and q5 and writes the four side files for them."""
+    assert sorted(cli_outputs["resume"]) == sorted(cli_outputs["fasta"])
+    assert cli_outputs["manifest"]["batches_done"] == 2
+    assert cli_outputs["manifest"]["deferred"] == {}
+    selected = {"q1", "q3", "q5"}
+    assert {ln.split()[0].split("/")[0] for ln in cli_outputs["selected"][1:]} == selected
+    assert {ln.split()[0] for ln in cli_outputs["anchors"]} == selected
+    assert [ln.split()[:3] for ln in cli_outputs["fullMetrics"][2:]] == [
+        [q, "500", "1"] for q in ("q1", "q3", "q5")]
+    assert len(cli_outputs["clusters"]) == 4 and len(cli_outputs["lcpBounds"]) == 6
 
 
 def test_cli_writes_bestn2_m5_with_jax_blocked(cli_outputs):
@@ -272,11 +299,11 @@ def _check_cli_lines(lines):
 def test_cli_names_unsupported_options():
     from blasr_tpu_torch.cli.blasr import main
 
-    for argv, name in ((["-resume"], "-resume"), (["-subsample", "0.5"], "-subsample"),
-                       (["-useSensitiveSearch"], "-useSensitiveSearch"),
+    for argv, name in ((["-useSensitiveSearch"], "-useSensitiveSearch"),
                        (["-placeRepeatsRandomly"], "-placeRepeatsRandomly"),
-                       (["-start", "3"], "-start"),
-                       (["-readIndex", "2"], "-readIndex")):
+                       (["-maxExpand", "2"], "-maxExpand 2"),
+                       (["-ndevices", "2"], "-ndevices 2"),
+                       (["-pvaltype", "2"], "-pvaltype 2")):
         with pytest.raises(SystemExit, match=name):
             main(["r.fa", "g.fa", *argv])
 
@@ -285,6 +312,8 @@ def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "blasr_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for module in ("pipeline/debug.py", "pipeline/diagnostics.py", "cli/blasr.py"):
+        assert os.path.join(REPO, "blasr_tpu_torch", module) in files
     return files
 
 
