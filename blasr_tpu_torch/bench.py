@@ -23,7 +23,9 @@ genome's 100,000-1,300,000 and 2,000,000-2,800,000 (2% substitutions,
 (``ensure_long_corpus``) holds 300 simulated reads of mean length 8 kb
 (seed 17; 5-24 kb, named ``long/<i>|ref|...``), all above the bench's
 ``max_read_len``, so ``run_mapping`` maps them piecewise, then the first
-100 reads of the FASTA corpus, which pass through whole.
+100 reads of the FASTA corpus, which pass through whole. The optional
+modes' corpus (``ensure_modes_corpus``) holds 256 CLR reads and four
+planted reads that need the retry passes.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ GENOME_FA = os.path.join(BENCH_DIR, "genome.fasta")
 READS_FA = os.path.join(BENCH_DIR, "reads.fasta")
 # config 5's contigs: (name, genome start, genome end, evolve_sequence seed)
 CONTIGS = (("ctg1", 100_000, 1_300_000, 1), ("ctg2", 2_000_000, 2_800_000, 2))
+# the genome starts of the optional modes' four planted reads
+MODES_PLANTED = (600_000, 1_700_000, 2_900_000, 3_800_000)
 
 
 def ensure_corpus(bench_dir: str = BENCH_DIR) -> tuple[str, str]:
@@ -102,6 +106,40 @@ def ensure_long_corpus(bench_dir: str = BENCH_DIR) -> str:
         long_reads, _ = simulate_reads(g, 300, mean_len=8000, seed=17)
         write_fasta(path, [("long/" + r.name.split("/", 1)[1], r.codes) for r in long_reads]
                     + read_fasta(reads_fa)[:100])
+    return path
+
+
+def ensure_modes_corpus(bench_dir: str = BENCH_DIR) -> str:
+    """Write the optional modes' FASTQ corpus (once): the first 256 reads of
+    the CLR FASTQ corpus, then four planted reads of 1200 bases from the
+    bench genome at phred 15 (the quality that leaves the DP's costs
+    unscaled): two with a substitution every 12 bases (no exact 12-mer,
+    so unmapped until the expand cascade's shorter seeds) and two exact
+    for 400 bases, then with 6 substitutions in every 16 (about 75%
+    similarity: the sensitive retry's trigger). Returns its path."""
+    import numpy as np
+
+    from blasr_tpu_torch.io.fasta import read_fasta
+    from blasr_tpu_torch.io.fastq import read_fastq, write_fastq
+
+    genome_fa, _ = ensure_corpus(bench_dir)
+    reads_fq = ensure_fastq_corpus(bench_dir)
+    path = os.path.join(bench_dir, "reads_modes.fastq")
+    if not os.path.exists(path):
+        g = read_fasta(genome_fa)[0][1]
+        planted = []
+        for i, start in enumerate(MODES_PLANTED):
+            r = g[start : start + 1200].copy()
+            if i < 2:
+                r[6::12] = (r[6::12] + 1) % 4
+                kind = "dense"
+            else:
+                for b in range(400, 1200, 16):
+                    r[b + 1 : b + 12 : 2] = (r[b + 1 : b + 12 : 2] + 1 + i % 2) % 4
+                kind = "noisy"
+            planted.append((f"planted/{kind}/{i}|ref|{start}|{start + 1200}|0", r,
+                            np.full(1200, 15, np.uint8)))
+        write_fastq(path, read_fastq(reads_fq)[:256] + planted)
     return path
 
 

@@ -13,8 +13,15 @@ is: the compatibility flags the JAX CLI accepts (``-nproc``,
 and the long tail of reference flags, ``cli/args.py``) are accepted and
 change nothing; those that name a file (``-ctab``, ``-seqdb``,
 ``-findex``, ``-regionTable``, ``-fileType``) and
-``-computeAlignProbability`` say so on stderr. Only the options of modes
-not ported yet are refused, by name (``unsupported_options``).
+``-computeAlignProbability`` say so on stderr. Only ``-ndevices`` other
+than 1 is refused, by name (``unsupported_options``).
+``-useSensitiveSearch`` re-maps the unmapped reads and those below 80%
+similarity with twice the candidates and anchors (and takes seeds of at
+most 12 bases and at least 10 candidates for the whole run);
+``-maxExpand N`` re-maps the reads still unmapped at each wider seed
+level up to N; ``-placeRepeatsRandomly`` orders a read's tied alignments
+at random from ``-randomSeed``; ``-pvaltype 2`` and ``3`` rank the
+candidate windows by their anchor count or inverse-frequency weight.
 ``-start``, ``-stride``, ``-subsample`` (with ``-randomSeed``),
 ``-maxReadLength``, ``-maxReadIndex``, ``-readIndex`` and ``-readIndices``
 select the reads to map (``select_reads``). FASTQ quality values, and
@@ -91,20 +98,10 @@ def build_parser():
 
 def unsupported_options(args) -> list[str]:
     """The options given that select a mode the port does not have yet
-    (ROADMAP.md queue 1, items 14 and 16), by name. Every other flag of the
-    JAX CLI is honoured or, as there, accepted and changes nothing."""
-    bad = []
-    if args.useSensitiveSearch:
-        bad.append("-useSensitiveSearch")
-    if args.maxExpand > args.minExpand:
-        bad.append(f"-maxExpand {args.maxExpand} (above -minExpand {args.minExpand})")
-    if args.placeRepeatsRandomly:
-        bad.append("-placeRepeatsRandomly")
-    if args.pvaltype not in (0, 1):
-        bad.append(f"-pvaltype {args.pvaltype}")
-    if args.ndevices != 1:
-        bad.append(f"-ndevices {args.ndevices}")
-    return bad
+    (ROADMAP.md queue 1, item 16: mapping over several devices), by name.
+    Every other flag of the JAX CLI is honoured or, as there, accepted and
+    changes nothing."""
+    return [f"-ndevices {args.ndevices}"] if args.ndevices != 1 else []
 
 
 def warn_noop_flags(args) -> None:
@@ -273,14 +270,17 @@ def run_resumable(args, params, index, reads, fm, metrics):
       * the manifest also records the byte length of ``-out`` after each
         flush, and a resume first cuts ``-out`` back to it, so a kill
         between a flush and the manifest's update repeats no line;
-      * the reads that band escalation may still replace are held back
-        (``run_mapping``'s ``deferred``); the manifest keeps each one's
-        best narrow-pass score and lines, and a resumed run hands them to
-        ``run_mapping`` (``deferred_scores``), so the escalation pass maps
-        the run's whole candidate set, as the uninterrupted run does, where
-        the JAX CLI re-maps them on their own with other batch mates; they
-        are written, the wide band's records or the kept lines, at the end,
-        with one manifest update;
+      * the reads that a later pass may still replace or map are held
+        back (``run_mapping``'s ``held``: band escalation's and the
+        sensitive retry's candidates, adaptive_cd's flagged reads, and the
+        unmapped reads when the expand cascade or the sensitive retry may
+        map them, so no read gets both an unmapped line and a record); the
+        manifest keeps each one's ``HeldRead.summary()`` and lines, and a
+        resumed run hands them to ``run_mapping`` (``carried``), so each
+        pass maps the run's whole candidate set, as the uninterrupted run
+        does, where the JAX CLI re-maps them on their own with other batch
+        mates; they are written, a pass's records or the kept lines, at the
+        end, with one manifest update;
       * one batch is in flight, where the JAX CLI's runs eight ahead, so a
         batch is written as soon as it is mapped, not after the ninth is
         dispatched;
@@ -315,8 +315,12 @@ def run_resumable(args, params, index, reads, fm, metrics):
                 m = json.load(f)
         except (OSError, ValueError):
             m = None
+        # a manifest of another run, of a format without the held reads'
+        # summaries, or past the end of -out starts the run afresh
         if (isinstance(m, dict) and m.get("key") == key
-                and 0 <= m.get("out_bytes", -1) <= os.path.getsize(args.out)):
+                and 0 <= m.get("out_bytes", -1) <= os.path.getsize(args.out)
+                and isinstance(m.get("deferred"), dict)
+                and all({"amb", "records", "lines"} <= set(d) for d in m["deferred"].values())):
             state = m
     movie = os.path.basename(args.reads)
     rgid = read_group_id(movie)
@@ -360,19 +364,23 @@ def run_resumable(args, params, index, reads, fm, metrics):
         out_f = open(args.out, "r+b")
         out_f.truncate(state["out_bytes"])
         out_f.seek(0, os.SEEK_END)
-    carried = {n: d["score"] for n, d in state["deferred"].items()}
+    carried = {n: {"amb": d["amb"], "records": d["records"]}
+               for n, d in state["deferred"].items()}
     delivered: set = set()
 
     def on_batch(bi, recs, unm, held=None):
         emit(lines_of(recs, unm))
         if bi < 0:
-            # the resolved records of the held-back reads: the manifest
-            # keeps them pending until the kept lines are written too
+            # the resolved records and unmapped names of the held-back
+            # reads: the manifest keeps them pending until the kept lines
+            # are written too
             delivered.update(r.qname for r in recs)
+            delivered.update(unm)
             return
         state["batches_done"] = max(state["batches_done"], bi + 1)
-        for n, rs in (held or {}).items():
-            state["deferred"][n] = {"score": min(r.score for r in rs), "lines": lines_of(rs, [])}
+        for n, h in (held or {}).items():
+            state["deferred"][n] = {**h.summary(),
+                                    "lines": lines_of(h.records, [] if h.records else [n])}
         save()
 
     # one batch in flight, so each batch is written as soon as it is mapped
@@ -382,10 +390,11 @@ def run_resumable(args, params, index, reads, fm, metrics):
     try:
         records, unmapped = run_mapping(
             index, reads, run_params, device=args.device, metrics=metrics, fm=fm,
-            on_batch=on_batch, skip_batches=state["batches_done"], deferred_scores=carried,
+            on_batch=on_batch, skip_batches=state["batches_done"], carried=carried,
         )
         if state["deferred"]:
-            # held-back reads the wide band did not improve keep their lines
+            # held-back reads of skipped batches that no pass replaced keep
+            # their lines
             emit([ln for n, d in state["deferred"].items() if n not in delivered
                   for ln in d["lines"]])
             state["deferred"] = {}

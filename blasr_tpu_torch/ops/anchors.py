@@ -16,7 +16,9 @@ that ``pipeline/mapper.make_device_index`` builds:
   * wide keys (``find_anchors_wide``, k 16-30): the same search over keys
     split into a top-30-bit and a low half, compared as pairs.
 
-The last two expand each interval into hits over the masked suffix array
+``find_anchors_search`` is the JAX function's call shape without a prefix
+table (two full binary searches per position), which no mapper path takes.
+The searched kinds expand each interval into hits over the masked suffix array
 (-1 marks a position that cannot seed) and keep the top A by priority
 (``_expand_and_select``). Each is plain PyTorch, as the JAX package's are
 plain XLA; the loops run a static number of rounds, with no host sync.
@@ -248,6 +250,42 @@ def _expand_and_select(
     anh = _take(nh_sel[..., None].expand(B, P, KH).reshape(B, P * KH), sel)
     avalid = vals > 0
     return at, aq.to(i32), torch.clamp(anh, min=1).to(i32), avalid
+
+
+def find_anchors_search(
+    codes: torch.Tensor,         # (B, L) uint8
+    lengths: torch.Tensor,       # (B,) int32
+    sa: torch.Tensor,            # (G,) int32 suffix array (-1: cannot seed)
+    sa_kmers: torch.Tensor,      # (G,) int32 ascending packed k-mers in SA order
+    pos_ok: torch.Tensor | None = None,  # (G,) bool seed validity, or None if folded into sa
+    *,
+    k: int,
+    max_hits_per_pos: int = 8,
+    max_anchors_per_read: int = 512,
+    anchor_stride: int = 1,
+    expand: int = 0,
+):
+    """Up to A anchors per read, (t, q, nhits, valid) each (B, A), with
+    no prefix table: each interval is two full binary searches over the
+    sorted keys, and ``pos_ok``, when given, is folded into the suffix
+    array here. The JAX package's ``find_anchors`` called without a lookup
+    table (its original call shape, which its tests use); no mapper path
+    takes it."""
+    B, _ = codes.shape
+    G = sa.shape[0]
+    ST = max(1, anchor_stride)
+    qk = pack_query_kmers(codes, lengths, k, ST)                  # (B, L/ST)
+    L = qk.shape[1]
+    e2 = 2 * min(max(expand, 0), k - 1)
+    mask = (1 << e2) - 1
+    sk = sa_kmers.to(torch.int32).contiguous()
+    lo = torch.searchsorted(sk, (qk & ~mask).contiguous(), side="left").to(torch.int32)
+    hi = torch.searchsorted(sk, (qk | mask).contiguous(), side="right").to(torch.int32)
+    sa = sa.to(torch.int32)
+    if pos_ok is not None:
+        sa = torch.where(pos_ok[torch.clamp(sa, 0, G - 1).long()] & (sa >= 0), sa, -1)
+    return _expand_and_select(sa, lo, hi - lo, qk >= 0, B, L, max_hits_per_pos,
+                              max_anchors_per_read, ST)
 
 
 def find_anchors_bisect(

@@ -263,10 +263,16 @@ def banded_align_plain(
     scoring. A per-item schedule (S, I) turns the window reads into
     per-item gathers and the band shifts into per-item selects; its values
     must lie in [0, L - W] with per-step deltas in {0, 1}
-    (``qoff_from_knots``)."""
+    (``qoff_from_knots``).
+
+    ``global_q`` is the score-only global-in-query mode: the alignment
+    consumes every query base (a virtual boundary row H(q = -1, t) = 0
+    frees the target start, and only the cells of the read's last base
+    end it), the target's start and end stay free. It is plain only: the
+    CUDA kernel has no such mode."""
     mode = qual_mode(qual)
-    if global_q:
-        raise NotImplementedError("global-in-query scoring is not ported yet")
+    if global_q and with_traceback:
+        raise ValueError("global_q is a score-only mode: with_traceback must be off")
     dev = query.device
     I, L = query.shape
     T = target.shape[1]
@@ -311,7 +317,9 @@ def banded_align_plain(
     R2 = R1.clone()
     M1 = R1.clone()
     M2 = R1.clone()
-    best = torch.zeros(I, dtype=i32, device=dev)
+    # local scores are <= 0 (the empty alignment); global-in-query scores
+    # may be positive, so their running best starts at INF
+    best = torch.full((I,), INF if global_q else 0, dtype=i32, device=dev)
     besta = torch.zeros(I, dtype=i32, device=dev)
     bestw = torch.zeros(I, dtype=i32, device=dev)
     arrows = (
@@ -385,21 +393,30 @@ def banded_align_plain(
         F_new = torch.minimum(F1_up, f_open) + ge
         fbit = (F1_up <= f_open).to(i32)
 
-        diag_fresh = H2_diag > 0  # INF marks out-of-band / masked predecessors
-        h = torch.clamp(H2_diag, max=0) + sub
-        src = torch.where(diag_fresh, SRC_DIAG_START, SRC_DIAG).to(i32)
-        for val, code in (
-            (H1_up + ins_cell, SRC_UP),
-            (H1_left + del_sc, SRC_LEFT),
-            (E_new, SRC_E),
-            (F_new, SRC_F),
-        ):
+        if global_q:
+            # at q == 0 the diagonal and the insertion-family predecessors
+            # come from the boundary row; no free restarts, no clamp at 0
+            at_q0 = q_pos == 0
+            up = torch.where(at_q0, 0, H1_up)
+            F_new = torch.minimum(torch.where(at_q0, INF, F1_up), up + go) + ge
+            h = torch.where(at_q0, 0, H2_diag) + sub
+            src = torch.full_like(h, SRC_DIAG)
+            preds = ((up + ins_cell, SRC_UP), (H1_left + del_sc, SRC_LEFT),
+                     (E_new, SRC_E), (F_new, SRC_F))
+        else:
+            diag_fresh = H2_diag > 0  # INF marks out-of-band / masked predecessors
+            h = torch.clamp(H2_diag, max=0) + sub
+            src = torch.where(diag_fresh, SRC_DIAG_START, SRC_DIAG).to(i32)
+            preds = ((H1_up + ins_cell, SRC_UP), (H1_left + del_sc, SRC_LEFT),
+                     (E_new, SRC_E), (F_new, SRC_F))
+        for val, code in preds:
             take = val < h
             h = torch.minimum(h, val)
             src = torch.where(take, code, src)
-        # the empty alignment wins every tie at 0
-        src = torch.where(h >= 0, SRC_STOP, src)
-        h = torch.clamp(h, max=0)
+        if not global_q:
+            # the empty alignment wins every tie at 0
+            src = torch.where(h >= 0, SRC_STOP, src)
+            h = torch.clamp(h, max=0)
 
         H_new = torch.where(valid, h, INF)
         E_new = torch.where(valid, E_new, INF)
@@ -416,7 +433,12 @@ def banded_align_plain(
         ).to(i32)
         M_emit = torch.where(src == SRC_DIAG_START, mm, M_new)
 
-        row_min, row_arg = torch.min(H_new, dim=1)
+        if global_q:
+            # the alignment ends on the read's last base; every step's cell
+            # there competes (free target end)
+            row_min, row_arg = torch.min(torch.where(q_pos == qlen_c - 1, H_new, INF), dim=1)
+        else:
+            row_min, row_arg = torch.min(H_new, dim=1)
         better = row_min < best
         best = torch.minimum(best, row_min)
         besta = torch.where(better, a, besta)

@@ -218,3 +218,75 @@ def anchor_weights(
         inv_ln2 = float(f32(1) / f32(np.log(2.0)))
         w = torch.clamp(-(xla_log(nh * per_hit) * inv_ln2), min=0.5)
     return torch.where(valid, w, 0.0)
+
+
+def global_chain_exact(q: np.ndarray, t: np.ndarray, l: np.ndarray) -> tuple[int, list[int]]:
+    """Exact max-weight colinear chain of fragments (q, t, length), the
+    reference's GlobalChain semantics (GlobalChain.h:100-210): a fragment's
+    weight is its length, and i may precede j when i's end passes neither
+    of j's starts. An O(n^2) DP on the host, the oracle of
+    ``chain_weight_device``; returns (best weight, the chain's indices into
+    the inputs in start-to-end order)."""
+    n = len(q)
+    if n == 0:
+        return 0, []
+    order = np.lexsort((t, q))
+    qs, ts, ls = q[order], t[order], l[order]
+    score = ls.astype(np.int64).copy()
+    prev = np.full(n, -1, np.int64)
+    for j in range(n):
+        ok = (qs[:j] + ls[:j] <= qs[j]) & (ts[:j] + ls[:j] <= ts[j])
+        if ok.any():
+            cand = np.where(ok, score[:j], -1)
+            i = int(cand.argmax())
+            if cand[i] > 0:
+                score[j] = ls[j] + cand[i]
+                prev[j] = i
+    jbest = int(score.argmax())
+    chain = []
+    while jbest >= 0:
+        chain.append(int(order[jbest]))
+        jbest = int(prev[jbest])
+    chain.reverse()
+    return int(score.max()), chain
+
+
+def chain_weight_device(
+    t: torch.Tensor,        # (B, A) int32 anchor genome pos
+    q: torch.Tensor,        # (B, A) int32 anchor read pos
+    valid: torch.Tensor,    # (B, A) bool
+    dstar: torch.Tensor,    # (B, C) int32 window-start diagonal per candidate
+    cvalid: torch.Tensor,   # (B, C) bool
+    *,
+    k: int,
+    win: int,
+) -> torch.Tensor:
+    """(B, C) int32: the exact max-weight colinear chain of each candidate
+    window's member anchors (fragments of length k), the reference's
+    GlobalChain ranking (``exact_chain``); equals ``global_chain_exact``
+    on each window's members.
+
+    The anchors are taken in ascending q order (ties by index, as the JAX
+    function's pairwise rank orders them): a predecessor has q_i + k <=
+    q_j, so it is final before its successor's step, and each step takes
+    the best chain ending at one predecessor among the window's members.
+    A steps of int32 arithmetic on the device, with no host sync."""
+    B, A = t.shape
+    d = t - q
+    reld = d[:, None, :] - dstar[:, :, None]
+    mem = valid[:, None, :] & (reld >= 0) & (reld < win) & cvalid[:, :, None]  # (B, C, A)
+    order = torch.argsort(q, dim=1, stable=True)
+    q_ord = torch.gather(q, 1, order)
+    t_ord = torch.gather(t, 1, order)
+    mem_ord = torch.gather(mem, 2, order[:, None, :].expand(mem.shape))
+    f = torch.zeros(mem.shape, dtype=torch.int32, device=t.device)  # in q order
+    qk = q_ord + k
+    tk = t_ord + k
+    for s in range(A):
+        # the predecessors of anchor s all lie before it in q order
+        pred = mem_ord[:, :, :s] & ((qk[:, :s] <= q_ord[:, s : s + 1])
+                                     & (tk[:, :s] <= t_ord[:, s : s + 1]))[:, None, :]
+        pm = torch.amax(torch.where(pred, f[:, :, :s], 0), dim=-1) if s else 0
+        f[:, :, s] = torch.where(mem_ord[:, :, s], k + pm, 0)
+    return torch.amax(f, dim=-1) if A else torch.zeros(dstar.shape, dtype=torch.int32,
+                                                       device=t.device)

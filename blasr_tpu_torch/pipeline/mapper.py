@@ -57,6 +57,7 @@ from blasr_tpu_torch.ops.banded_cuda import banded_align
 from blasr_tpu_torch.ops.candidates import (
     anchor_weights,
     chain_stats,
+    chain_weight_device,
     ordered_sum,
     select_candidates,
 )
@@ -439,10 +440,6 @@ def map_batch_impl(
     qual: torch.Tensor | None = None,  # (B, L) uint8, or int16 (dual)
     clock: StageClock | None = None,
 ) -> MapBatchResult:
-    if params.pval_type not in (0, 1):
-        raise NotImplementedError("-pvaltype 2/3 ranking is not ported yet")
-    if params.exact_chain:
-        raise NotImplementedError("exact_chain ranking is not ported yet")
     dev = codes.device
     B, L = codes.shape
     C = params.n_candidates
@@ -503,21 +500,40 @@ def map_batch_impl(
     if params.forward_only:
         vld2 = vld2 & (torch.arange(2 * C, device=dev)[None, :] < C)
     b_ar = torch.arange(B, dtype=I32, device=dev)[:, None]
-    n_chain, chained_any, cmass, ch_corners = chain_stats(
-        at, aq, avalid, cand.dstar, cand.valid, k=k, win=CW,
-    )
-    nch2 = to2(n_chain)
-    vld2 = vld2 & to2(chained_any) & (to2(cmass) > params.min_interval)
-    gst2 = to2(cand.d0 + cand.q_lo)
-    grank = torch.argsort(
-        torch.argsort(torch.where(vld2, gst2, 2**30), dim=1, stable=True),
-        dim=1, stable=True,
-    ).to(I32)
-    key = torch.where(vld2, (torch.clamp(nch2, max=1 << 14) << 15) - grank, -1)
-    top_sorted, top_idx = topk_desc(key, max(CD, 2))
-    topw, topj = top_sorted[:, :CD], top_idx[:, :CD].to(I32)
-    cvalid = (topw > 0).reshape(-1)
-    ambig = top_sorted[:, 1] > 0
+    if params.pval_type in (0, 1):
+        # the reference's chain p-value: rank by colinear-chain size (or,
+        # with exact_chain, its exact max weight), ties by interval start,
+        # and admit only windows with a chain (or a long exact match) and
+        # an anchor coverage above min_interval
+        n_chain, chained_any, cmass, ch_corners = chain_stats(
+            at, aq, avalid, cand.dstar, cand.valid, k=k, win=CW,
+        )
+        if params.exact_chain:
+            mark("candidates")
+            n_chain = chain_weight_device(
+                at, aq, avalid, cand.dstar, cand.valid, k=k, win=CW,
+            )
+            mark("exact_chain")
+        nch2 = to2(n_chain)
+        vld2 = vld2 & to2(chained_any) & (to2(cmass) > params.min_interval)
+        gst2 = to2(cand.d0 + cand.q_lo)
+        grank = torch.argsort(
+            torch.argsort(torch.where(vld2, gst2, 2**30), dim=1, stable=True),
+            dim=1, stable=True,
+        ).to(I32)
+        key = torch.where(vld2, (torch.clamp(nch2, max=1 << 14) << 15) - grank, -1)
+        top_sorted, top_idx = topk_desc(key, max(CD, 2))
+        cvalid = (top_sorted[:, :CD] > 0).reshape(-1)
+        ambig = top_sorted[:, 1] > 0
+    else:
+        # -pvaltype 2/3: the summed anchor weight ranks the windows, with
+        # no admission gate; the corners are the windows' member spans
+        wneg = torch.where(vld2, to2(cand.weight), -1.0)
+        top_sorted, top_idx = topk_desc(wneg, max(CD, 2))
+        cvalid = (top_sorted[:, :CD] > 0.0).reshape(-1)
+        ambig = top_sorted[:, 1] > 0.0
+        ch_corners = (cand.q_lo, cand.q_hi, cand.d0 + cand.q_lo, cand.d0 + cand.q_hi + k)
+    topj = top_idx[:, :CD].to(I32)
     dp_strand = torch.div(topj, C, rounding_mode="floor").to(I32)
     dp_c = (topj % C).to(I32)
     cand_flat = ((dp_strand * B + b_ar) * C + dp_c).reshape(-1).long()

@@ -3,11 +3,15 @@
 Port of ``blasr_tpu.pipeline.runner.run_mapping``: padded
 length-bucketed batches go through ``Mapper.map_batch`` on ``device``
 while earlier batches finalize on the host (dispatch-ahead), records are
-converted to contig coordinates and filtered, and reads whose best record
-shows the narrow-band clipping signature are re-mapped through the wide
-unguided band (band escalation) keeping the better score. A caller may
-stream the records batch by batch (``on_batch``) and resume a run whose
-first batches were flushed (``skip_batches``). With
+converted to contig coordinates and filtered. Then the JAX runner's
+passes re-map some reads, each through a nested run: the full-depth
+re-map under ``adaptive_cd``, the ``-maxExpand`` cascade, band
+escalation (reads whose best record shows the narrow-band clipping
+signature, through the wide unguided band, keeping the better score) and
+the ``-useSensitiveSearch`` retry; ``-placeRepeatsRandomly`` orders tied
+records at random. A caller may stream the records batch by batch
+(``on_batch``) and resume a run whose first batches were flushed
+(``skip_batches``, ``carried``). With
 ``best_n > 1`` each secondary (rank >= 1) passes the reference's host
 admission (``pipeline/secondary_refine.py``: SDP over the candidate's
 chain, the ``min_interval`` anchor gate, ``-maxScore`` on the SDP score)
@@ -70,7 +74,18 @@ class MappingMetrics:
     wait_seconds: float = 0.0       # host time blocked on the device + d2h
     finalize_seconds: float = 0.0   # host time turning results into records
     wall_seconds: float = 0.0
-    escalated_reads: int = 0        # reads re-mapped through the wide band
+    # the passes after the first (each a nested run): reads re-mapped at
+    # full depth under adaptive_cd and those whose records it changed;
+    # per expand level, [reads re-mapped, reads it mapped]; reads
+    # re-mapped through the wide band and those whose score it improved;
+    # reads the sensitive retry re-mapped and those whose score it improved
+    adaptive_reads: int = 0
+    adaptive_changed: int = 0
+    expand_levels: dict = dataclasses.field(default_factory=dict)
+    escalated_reads: int = 0
+    escalation_won: int = 0
+    sensitive_reads: int = 0
+    sensitive_won: int = 0
     # the -bestn secondary admission (inside finalize): host seconds, rank
     # >= 1 records it took, those the min_interval gate dropped, and those
     # admitted with the SDP chain's span, score and ops
@@ -91,22 +106,35 @@ class MappingMetrics:
 
     def add(self, other: "MappingMetrics", fields=None) -> None:
         """Add ``other``'s counters and timers into these: the ``fields``
-        named, else every one, the per-bucket counts too."""
+        named, else every one, the per-bucket counts too. A dict field
+        (key -> list of counts) adds key by key."""
         if fields is None:
             fields = [f.name for f in dataclasses.fields(self)
-                      if f.name not in ("buckets", "last_run_dp_cells")]
-            for key, (n_batches, n_reads) in other.buckets.items():
-                bk = self.buckets.setdefault(key, [0, 0])
-                bk[0] += n_batches
-                bk[1] += n_reads
+                      if f.name != "last_run_dp_cells"]
         for f in fields:
-            setattr(self, f, getattr(self, f) + getattr(other, f))
+            mine, theirs = getattr(self, f), getattr(other, f)
+            if isinstance(mine, dict):
+                for key, counts in theirs.items():
+                    acc = mine.setdefault(key, [0] * len(counts))
+                    for i, n in enumerate(counts):
+                        acc[i] += n
+            else:
+                setattr(self, f, mine + theirs)
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
         if self.wall_seconds > 0:
             d["readsPerSecond"] = round(self.n_reads / self.wall_seconds, 2)
         return d
+
+
+# what a pass's nested run adds into the run's metrics: host time, DP
+# cells, the secondary admission and the nested run's own passes
+PASS_FIELDS = ("dispatch_seconds", "wait_seconds", "finalize_seconds", "total_dp_cells",
+               "secondary_seconds", "secondary_checked", "secondary_gated",
+               "secondary_replaced", "adaptive_reads", "adaptive_changed", "expand_levels",
+               "escalated_reads", "escalation_won", "sensitive_reads", "sensitive_won")
+SENSITIVE_PCT = 80.0   # the sensitive retry's similarity trigger (Blasr.cpp:3498)
 
 
 @dataclasses.dataclass
@@ -135,7 +163,7 @@ class AlignmentRecord:
 
 
 def _best_by_read(records) -> dict:
-    """Read name -> its best (lowest-score) record."""
+    """Read name -> its best (lowest-score) record, the first of equals."""
     best_by: dict = {}
     for r in records:
         cur = best_by.get(r.qname)
@@ -159,6 +187,37 @@ def _escalation_candidates(best_by: dict, params) -> set:
     return names
 
 
+def _best_pct(records) -> dict:
+    """Read name -> the highest similarity among its records."""
+    best: dict = {}
+    for r in records:
+        best[r.qname] = max(best.get(r.qname, 0.0), r.pct_similarity)
+    return best
+
+
+def _replaceable(records, params) -> set:
+    """Read names whose records band escalation or the sensitive retry may
+    still replace, from the reads' first-pass records: the same triggers
+    the passes apply."""
+    names: set = set()
+    if params.band_escalation and params.narrow_band:
+        names |= _escalation_candidates(_best_by_read(records), params)
+    if params.sensitive_retry:
+        names |= {n for n, p in _best_pct(records).items() if p < SENSITIVE_PCT}
+    return names
+
+
+def _record_keys(records, names) -> dict:
+    """Read name -> what its -m 4 lines show of its records, for ``names``."""
+    keys: dict = {}
+    for r in records:
+        if r.qname in names:
+            keys.setdefault(r.qname, []).append(
+                (r.tname, r.tstrand, r.tstart, r.tend, r.qstart, r.qend, r.score,
+                 r.pct_similarity, r.mapqv))
+    return keys
+
+
 def passes_input_filters(read: Read, params: MappingParams) -> bool:
     """The reference's length and quality input filters: a read that fails
     is reported unaligned without entering the pipeline."""
@@ -177,18 +236,33 @@ def _n_parameters(fn) -> int:
         return 0
 
 
-def _check_supported(params: MappingParams) -> None:
-    unsupported = {
-        "adaptive_cd": params.adaptive_cd,
-        "sensitive_retry": params.sensitive_retry,
-        "max_expand > min_expand (expand retries)": params.max_expand > params.min_expand,
-        "place_repeats_randomly": params.place_repeats_randomly,
-    }
-    bad = [name for name, on in unsupported.items() if on]
-    if bad:
-        raise NotImplementedError(
-            "not ported to blasr_tpu_torch yet: " + ", ".join(bad)
-        )
+@dataclasses.dataclass
+class HeldRead:
+    """A read held back from the batch stream because a later pass may
+    still replace its records or map it: its first-pass records (none when
+    it is unmapped) and whether adaptive_cd's full-depth re-map replaces
+    them."""
+
+    records: list
+    amb: bool = False
+
+    def summary(self) -> dict:
+        """What a resumed run needs of the read (``run_mapping``'s
+        ``carried``): the flag, and each record's score, similarity and
+        query span in order, which the passes' triggers and merges read."""
+        return {"amb": self.amb,
+                "records": [[r.score, r.pct_similarity, r.qstart, r.qend, r.qlength]
+                            for r in self.records]}
+
+
+def _carried_record(name: str, row) -> AlignmentRecord:
+    """A stand-in for a record of a skipped batch's held read, with the
+    fields the passes read."""
+    score, pct, qstart, qend, qlength = row
+    return AlignmentRecord(qname=name, tname="", score=int(score), pct_similarity=pct,
+                           qstrand=0, qstart=int(qstart), qend=int(qend),
+                           qlength=int(qlength), tstrand=0, tstart=0, tend=0, tlength=0,
+                           mapqv=0)
 
 
 def run_mapping(
@@ -202,9 +276,19 @@ def run_mapping(
     fm=None,
     on_batch=None,
     skip_batches: int = 0,
-    deferred_scores: dict | None = None,
+    carried: dict | None = None,
 ) -> tuple[list[AlignmentRecord], list[str]]:
     """Map reads on ``device``; returns (alignments, unmapped read names).
+
+    After the first pass over the batches come the JAX package's passes,
+    in its order, each a nested run over the reads it re-maps: the
+    full-depth re-map of the reads with a second admitted window
+    (``adaptive_cd``: the first pass runs one DP window a read), the
+    expand cascade (``max_expand`` above ``min_expand``: unmapped reads at
+    each wider seed level), band escalation, and the sensitive retry
+    (``sensitive_retry``: unmapped reads and those below 80% similarity,
+    with twice the candidates and anchors); ``place_repeats_randomly``
+    orders a read's tied records at random from ``random_seed``.
 
     ``metrics``, when given, receives the run's counters and timers;
     ``clock`` a per-stage split of the device work (it synchronises after
@@ -215,21 +299,21 @@ def run_mapping(
     ``pipeline/piecewise.run_mapping_piecewise``, which maps those reads
     as segments and stitches them.
 
-    ``on_batch(bi, records, unmapped_names[, deferred])`` fires after each
-    batch finalizes, in batch order; a callback of 4 parameters also gets
-    ``deferred``, a dict from each read name held back from the stream to
-    its narrow-pass records. Band escalation may still replace those
-    reads' records, so their resolved records go out in one final
-    ``on_batch(-1, records, [])`` (with an empty ``deferred``): the
-    streamed records are the returned ones. ``skip_batches`` skips the
-    first batches of the deterministic batching (a resumed run).
-    ``deferred_scores`` gives the best
-    narrow-pass score of each read held back in a skipped batch: those
-    reads join this run's escalation pass, so it maps the run's whole
-    candidate set, and the records of those the wide band improves are
-    delivered in the final call. With ``on_batch`` or ``skip_batches``,
-    reads longer than ``max_read_len`` are truncated to it, as the JAX
-    package does, not mapped piecewise."""
+    ``on_batch(bi, records, unmapped_names[, held])`` fires after each
+    batch finalizes, in batch order. The reads a later pass may still
+    replace or map are held back from it; a callback of 4 parameters also
+    gets ``held``, a dict from each of those names to its ``HeldRead``.
+    Their resolved records and unmapped names go out in one final
+    ``on_batch(-1, records, unmapped_names[, {}])``: the streamed records
+    are the returned ones. ``skip_batches`` skips the first batches of the
+    deterministic batching (a resumed run). ``carried`` maps the names
+    held back in those batches to their ``HeldRead.summary()``: they join
+    this run's passes as they stood after the first pass, so each pass
+    maps the run's whole candidate set with the batch mates of the
+    uninterrupted run; the final call delivers those a pass replaced or
+    left unmapped, the others keep their first-pass records. With
+    ``on_batch`` or ``skip_batches``, reads longer than ``max_read_len``
+    are truncated to it, as the JAX package does, not mapped piecewise."""
     streamed = on_batch is not None or skip_batches > 0
     if (params.auto_segment and not streamed and reads
             and max(len(r) for r in reads) > params.max_read_len):
@@ -241,10 +325,15 @@ def run_mapping(
             index, reads, params, device=device, metrics=metrics, clock=clock, fm=fm,
             split_if_longer=params.max_read_len,
         )
-    _check_supported(params)
     met = metrics if metrics is not None else MappingMetrics()
     t_run0 = time.time()
-    mapper = Mapper(index, params, device=device, clock=clock, fm=fm)
+    # adaptive candidate depth: a read without a second admitted window
+    # maps alike at any depth, so the first pass runs one DP window a read
+    # and the flagged reads are re-mapped at full depth, their records
+    # replaced wholesale
+    adaptive = params.adaptive_cd and params.best_n == 1 and params.dp_candidates > 1
+    map_params = dataclasses.replace(params, n_dp_candidates=1) if adaptive else params
+    mapper = Mapper(index, map_params, device=device, clock=clock, fm=fm)
     out: list[AlignmentRecord] = []
     unmapped: list[str] = []
     if params.min_read_length > 0 or params.min_avg_qual > 0:
@@ -253,9 +342,13 @@ def run_mapping(
 
     inflight: deque = deque()
     escalate = params.band_escalation and bool(params.narrow_band)
-    # streamed == returned: hold back the reads escalation may replace
-    defer_stream = on_batch is not None and escalate
-    deferred_names: set[str] = set()
+    expand = params.max_expand > params.min_expand
+    # streamed == returned: hold back the reads a later pass may replace,
+    # and the unmapped reads when a pass may still map them
+    hold_mapped = on_batch is not None and (escalate or params.sensitive_retry)
+    hold_unmapped = on_batch is not None and (expand or params.sensitive_retry)
+    held_names: set[str] = set()
+    adaptive_names: set[str] = set()
     on_batch_4 = on_batch is not None and _n_parameters(on_batch) >= 4
     first_pass_cells = 0
 
@@ -267,22 +360,31 @@ def run_mapping(
         t1 = time.time()
         met.wait_seconds += t1 - t0
         out_b, unm_b = _finalize_batch(mapper, batch, res, met)
+        amb: set[str] = set()
+        if adaptive:
+            ambig = unpack_result(res, map_params.dp_candidates).cand_ambig
+            amb = {batch.names[b] for b in range(len(batch.names))
+                   if batch.indices[b] >= 0 and ambig[b]}
+            adaptive_names.update(amb)
         out.extend(out_b)
         unmapped.extend(unm_b)
         if on_batch is not None:
-            stream_b, held = out_b, {}
-            if defer_stream:
-                dn = _escalation_candidates(_best_by_read(out_b), params)
-                if dn:
-                    deferred_names.update(dn)
-                    for r in out_b:
-                        if r.qname in dn:
-                            held.setdefault(r.qname, []).append(r)
-                    stream_b = [r for r in out_b if r.qname not in dn]
+            hold = set(amb)
+            if hold_mapped:
+                hold |= _replaceable(out_b, params)
+            if hold_unmapped:
+                hold.update(unm_b)
+            held = {n: HeldRead([], n in amb) for n in batch.names if n in hold}
+            for r in out_b:
+                if r.qname in hold:
+                    held[r.qname].records.append(r)
+            held_names.update(hold)
+            stream_b = [r for r in out_b if r.qname not in hold]
+            stream_u = [n for n in unm_b if n not in hold]
             if on_batch_4:
-                on_batch(bi, stream_b, unm_b, held)
+                on_batch(bi, stream_b, stream_u, held)
             else:
-                on_batch(bi, stream_b, unm_b)
+                on_batch(bi, stream_b, stream_u)
         met.finalize_seconds += time.time() - t1
         met.n_batches += 1
         met.n_records += len(out_b)
@@ -300,6 +402,7 @@ def run_mapping(
         bk = met.buckets.setdefault(int(batch.codes.shape[1]), [0, 0])
         bk[0] += 1
         bk[1] += int((batch.indices >= 0).sum())
+        # at the full depth under adaptive_cd, as the JAX package counts them
         first_pass_cells += (
             (2 * batch.max_len + params.target_pad - 1)
             * params.band_width_for(batch.max_len)
@@ -312,46 +415,120 @@ def run_mapping(
         drain_one()
     met.total_dp_cells += first_pass_cells
 
-    carried = deferred_scores if escalate and deferred_scores else {}
+    # the held reads of skipped batches enter the passes as stand-ins for
+    # their first-pass records, ahead of this run's, as their batches were
+    carried = carried or {}
+    stand_ins: list[AlignmentRecord] = []
+    for name, c in carried.items():
+        if c["amb"]:
+            adaptive_names.add(name)
+        stand_ins += [_carried_record(name, row) for row in c["records"]]
+    out = stand_ins + out
+    unmapped = [n for n, c in carried.items() if not c["records"]] + unmapped
+    stand_in_ids = {id(r) for r in stand_ins}
+
+    def nested(sub_reads, p):
+        sub = MappingMetrics()
+        recs, unm = run_mapping(index, sub_reads, p, device=device, metrics=sub,
+                                clock=clock, fm=fm)
+        met.add(sub, PASS_FIELDS)
+        return recs, unm
+
+    if adaptive and adaptive_names:
+        retry_reads = [r for r in reads if r.name in adaptive_names]
+        r2, u2 = nested(retry_reads, dataclasses.replace(
+            params, adaptive_cd=False, band_escalation=False, sensitive_retry=False,
+            max_expand=params.min_expand))
+        before, after = _record_keys(out, adaptive_names), _record_keys(r2, adaptive_names)
+        met.adaptive_reads += len(retry_reads)
+        met.adaptive_changed += sum(before.get(n) != after.get(n) for n in adaptive_names)
+        out = [r for r in out if r.qname not in adaptive_names] + r2
+        unmapped = [u for u in unmapped if u not in adaptive_names] + u2
+    if expand and unmapped:
+        # the expand cascade (Blasr.cpp:2554-2578): reads with no
+        # sufficient match re-run at each wider seed level in turn
+        retry_names = set(unmapped)
+        retry_reads = [r for r in reads if r.name in retry_names]
+        for e in range(params.min_expand + 1, params.max_expand + 1):
+            if not retry_reads:
+                break
+            r2, u2 = nested(retry_reads, dataclasses.replace(
+                params, min_expand=e, max_expand=e, sensitive_retry=False))
+            got = {rec.qname for rec in r2}
+            level = met.expand_levels.setdefault(e, [0, 0])
+            level[0] += len(retry_reads)
+            level[1] += len(got)
+            out.extend(r2)
+            unmapped = [u for u in unmapped if u not in got]
+            still = set(u2)
+            retry_reads = [r for r in retry_reads if r.name in still]
     if escalate:
         # re-map only the reads the narrow band visibly clipped, through the
         # length-scaled wide unguided band, and keep the better best score
         best_by = _best_by_read(out)
-        best_score = {n: r.score for n, r in best_by.items()}
-        best_score.update(carried)
-        retry_names = _escalation_candidates(best_by, params) | set(carried)
+        retry_names = _escalation_candidates(best_by, params)
         retry_reads = [r for r in reads if r.name in retry_names]
         if retry_reads:
-            esc = dataclasses.replace(
-                params,
-                band_escalation=False, sensitive_retry=False,
-                narrow_band=0, guided_band=False,
-            )
-            sub = MappingMetrics()
-            r2, _ = run_mapping(
-                index, retry_reads, esc, device=device, metrics=sub, clock=clock, fm=fm
-            )
-            met.escalated_reads += len(retry_reads)
-            met.add(sub, ("dispatch_seconds", "wait_seconds", "finalize_seconds",
-                          "total_dp_cells", "secondary_seconds", "secondary_checked",
-                          "secondary_gated", "secondary_replaced"))
+            r2, _ = nested(retry_reads, dataclasses.replace(
+                params, band_escalation=False, sensitive_retry=False,
+                narrow_band=0, guided_band=False))
             best2: dict[str, int] = {}
             for r in r2:
                 best2[r.qname] = min(best2.get(r.qname, 0), r.score)
-            use_retry = {n for n, s2 in best2.items() if s2 < best_score[n]}
+            use_retry = {n for n, s2 in best2.items() if s2 < best_by[n].score}
+            met.escalated_reads += len(retry_reads)
+            met.escalation_won += len(use_retry)
             out = [r for r in out if r.qname not in use_retry] + [
                 r for r in r2 if r.qname in use_retry
             ]
-    late = deferred_names | set(carried)
+    if params.sensitive_retry:
+        # the reference's sensitive retry (Blasr.cpp:3498-3507): unmapped
+        # reads and those below 80% similarity re-map with twice the
+        # candidates and anchors; the better best score wins (a read with
+        # no first-pass record takes any retry record, as in the JAX runner)
+        retry_names = set(unmapped) | {
+            n for n, pct in _best_pct(out).items() if pct < SENSITIVE_PCT}
+        retry_reads = [r for r in reads if r.name in retry_names]
+        if retry_reads:
+            r2, u2 = nested(retry_reads, dataclasses.replace(
+                params, sensitive_retry=False,
+                n_candidates=min(params.n_candidates * 2, 16),
+                max_anchors_per_read=params.max_anchors_per_read * 2,
+                max_anchors_per_position=params.max_anchors_per_position * 2))
+            best2 = {}
+            for r in r2:
+                best2[r.qname] = min(best2.get(r.qname, 0), r.score)
+            best1: dict[str, int] = {}
+            for r in out:
+                if r.qname in retry_names:
+                    best1[r.qname] = min(best1.get(r.qname, 0), r.score)
+            use_retry = {n for n, s2 in best2.items() if s2 < best1.get(n, 0)}
+            met.sensitive_reads += len(retry_reads)
+            met.sensitive_won += len(use_retry)
+            out = [r for r in out if r.qname not in use_retry] + [
+                r for r in r2 if r.qname in use_retry
+            ]
+            unmapped = [u for u in unmapped if u not in best2]
+    late = held_names | set(carried)
     if on_batch is not None and late:
-        stream_extra = [r for r in out if r.qname in late]
-        if stream_extra:
+        extra = [r for r in out if r.qname in late and id(r) not in stand_in_ids]
+        extra_u = [u for u in unmapped if u in late]
+        if extra or extra_u:
             if on_batch_4:
-                on_batch(-1, stream_extra, [], {})
+                on_batch(-1, extra, extra_u, {})
             else:
-                on_batch(-1, stream_extra, [])
+                on_batch(-1, extra, extra_u)
+    if stand_ins:
+        out = [r for r in out if id(r) not in stand_in_ids]
     order = {r.name: i for i, r in enumerate(reads)}
-    out.sort(key=lambda a: (order.get(a.qname, 1 << 30), a.score))
+    if params.place_repeats_randomly:
+        # -placeRepeatsRandomly (Blasr.cpp:3041-3086): a read's tied records
+        # in a random order, one draw per record in the order of ``out``
+        rng = np.random.default_rng(params.random_seed)
+        tie = {id(a): rng.random() for a in out}
+        out.sort(key=lambda a: (order.get(a.qname, 1 << 30), a.score, tie[id(a)]))
+    else:
+        out.sort(key=lambda a: (order.get(a.qname, 1 << 30), a.score))
     met.n_reads = len(reads)
     met.n_unmapped = len(unmapped)
     met.last_run_dp_cells = first_pass_cells

@@ -119,14 +119,30 @@ Phases, each of which must pass:
      reads, the text equal); (B) -resume on the CLR FASTQ corpus, killed
      (SIGKILL) once its manifest reports 3 batches written, then run
      again to its end: the file's lines are the JAX CLI's uninterrupted
-     run's (resume: none missing, none repeated, 0 differing).
+     run's (resume: none missing, none repeated, 0 differing);
+ 15. the optional mapping modes: (B) run_mapping in this process on phase
+     4's 256 FASTA reads once per FASTA cell of MODES_CELLS (plain,
+     adaptive_cd, exact_chain, -pvaltype 2 and 3) and on the modes corpus
+     (256 CLR FASTQ reads and four planted reads that need the passes,
+     bench.ensure_modes_corpus) plain and with the sensitive retry and the
+     expand cascade, each with the stage clock, its -m 4 lines equal to
+     the JAX package's read by read (tools/jax_modes_reference.json),
+     adaptive_cd's also the plain cell's, the k = 14 device index shared
+     by every cell; (A) one CLI process with -useSensitiveSearch -maxExpand
+     2 -placeRepeatsRandomly -randomSeed 7 on the modes corpus, its lines
+     the JAX CLI's; each pass meant to run (adaptive_cd's re-map, the
+     sensitive retry on the modes corpus; both expand levels and the
+     sensitive retry in the CLI) re-maps at least one read, and what each
+     pass re-mapped and changed is printed.
 The line before the last is a JSON object with each kernel's launches
 (each on its own path: the single-quality DP and the gathers on config 2;
 K1, K2 and K3 also on config 4's timed run, ``launches_config4``,
 on phase 12's timed run, ``launches_k15`` and ``launches_k18``, and on
 phase 13's runs, ``launches_config5`` and ``launches_long``; on phase
 14's processes, ``launches_cli_host`` for K1 without quality, K2 and K3
-and ``launches_resume`` for K1 with single quality, K2 and K3),
+and ``launches_resume`` for K1 with single quality, K2 and K3; on each
+run of phase 15, ``launches_modes``, K1 without quality on the FASTA
+cells and with single quality on the FASTQ ones and the CLI's),
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and the exit code is not 0. Needs one CUDA card.
 """
@@ -200,11 +216,28 @@ CLI_HOST_COMPAT = ["-nproc", "16", "-V", "1", "-affineAlign", "-noSplitSubreads"
                    "-maxLCPLength", "16", "-useQuality"]
 CLI_HOST_SIDE_FILES = ("fullMetrics", "clusters", "lcpBounds", "anchors")
 RESUME_KILL_AFTER = 3     # batches the manifest must report done before the kill
+# the JAX package's lines for phase 15 (tools/jax_modes_reference.py): the CLI
+# with the retry passes on the modes corpus, and each in-process cell on the
+# first 256 FASTA reads
+MODES_REFERENCE = os.path.join(HERE, "tools", "jax_modes_reference.json")
+MODES_CLI_FLAGS = ["-useSensitiveSearch", "-maxExpand", "2", "-placeRepeatsRandomly",
+                   "-randomSeed", "7"]
+# phase 15's in-process cells: (corpus, bench_params overrides); "fasta" is
+# phase 4's 256 FASTA reads (benchdata/reads_cli.fasta), "modes" the modes
+# corpus of the CLI cell (bench.ensure_modes_corpus)
+MODES_CELLS = {"plain": ("fasta", {}), "adaptive": ("fasta", {"adaptive_cd": True}),
+               "exact_chain": ("fasta", {"exact_chain": True}),
+               "pvaltype2": ("fasta", {"pval_type": 2}),
+               "pvaltype3": ("fasta", {"pval_type": 3}),
+               "clr_plain": ("modes", {}),
+               "clr_retry": ("modes", {"sensitive_retry": True, "max_expand": 2})}
 RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0, "config3": 0,
                      "config2": 0, "config3_sam": 0, "config4": 0, "k15": 0, "k18": 0,
-                     "config5": 0, "config5_sam": 0, "long": 0}
+                     "config5": 0, "config5_sam": 0, "long": 0,
+                     **{cell: 0 for cell in MODES_CELLS}}
 RECORD_FORMAT = {"fasta": "m4", "clr": "m4", "clr_guided": "m4", "config3": "m5",
-                 "config4": "m4", "k15": "m4", "k18": "m4", "config5": "m4", "long": "m4"}
+                 "config4": "m4", "k15": "m4", "k18": "m4", "config5": "m4", "long": "m4",
+                 **{cell: "m4" for cell in MODES_CELLS}}
 # H100 SXM peaks: HBM 3.35 TB/s; INT32 ALU 132 SMs x 64 lanes x 1.98 GHz
 # (Hopper architecture white paper), the rate of the DP's integer work
 HBM_BYTES_PER_S = 3.35e12
@@ -991,11 +1024,12 @@ def load_references() -> dict:
     (tools/jax_sam_reference.py), config 4's -m 4 on the FASTA corpus
     (tools/jax_fm_reference.py), -m 4 with seeds of k = 15 and 18
     (tools/jax_sa_reference.py), config 5's and the long reads' lines
-    (tools/jax_piecewise_reference.py) and phase 14's CLI files
-    (tools/jax_cli_reference.py), all written on the CPU."""
+    (tools/jax_piecewise_reference.py), phase 14's CLI files
+    (tools/jax_cli_reference.py) and phase 15's lines
+    (tools/jax_modes_reference.py), all written on the CPU."""
     refs = {}
     for path in (M4_REFERENCE, M5_REFERENCE, SAM_REFERENCE, FM_REFERENCE, SA_REFERENCE,
-                 PIECEWISE_REFERENCE, CLI_REFERENCE):
+                 PIECEWISE_REFERENCE, CLI_REFERENCE, MODES_REFERENCE):
         with open(path) as f:
             refs.update(json.load(f))
     return refs
@@ -1111,51 +1145,58 @@ def profile_batch(index, reads, params) -> dict:
 
 
 def walk_profile(index, reads, params, lo: int = 512, hi: int = 768) -> dict:
-    """The traceback walk of one batch of reads of ``lo`` + 1 to ``hi`` bp:
-    its wall time without the profiler (the median of three calls, taken
-    first: the profiler's event processing outlasts its context and would
-    slow the calls after it), then one call under torch.profiler, tracing
-    the card only, for its kernel launches and device time."""
+    """The traceback walk of one batch of reads of ``lo`` + 1 to ``hi`` bp
+    (``call_profile``)."""
+    sub = [r for r in reads if lo < len(r) <= hi][: params.batch_size]
+    if not sub:
+        raise AssertionError(f"no reads of {lo + 1}-{hi} bp to profile the walk on")
+    return call_profile("walk_arrows_device", index, sub, params)
+
+
+def call_profile(name: str, index, sub, params) -> dict:
+    """The first call of the mapper's ``name`` (a function of
+    pipeline/mapper.py's namespace) while ``sub`` maps: its wall time
+    without the profiler (the median of three calls, taken first: the
+    profiler's event processing outlasts its context and would slow the
+    calls after it), then one call under torch.profiler, tracing the card
+    only, for its kernel launches and device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from blasr_tpu_torch.pipeline import mapper
     from blasr_tpu_torch.pipeline.runner import run_mapping
 
-    sub = [r for r in reads if lo < len(r) <= hi][: params.batch_size]
-    if not sub:
-        raise AssertionError(f"no reads of {lo + 1}-{hi} bp to profile the walk on")
-    walk = mapper.walk_arrows_device
+    fn = getattr(mapper, name)
     out: dict = {}
 
     def traced(*args, **kw):
         if out:
-            return walk(*args, **kw)
+            return fn(*args, **kw)
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.time()
-            walk(*args, **kw)
+            fn(*args, **kw)
             torch.cuda.synchronize()
             walls.append((time.time() - t0) * 1e3)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tb = walk(*args, **kw)
+            res = fn(*args, **kw)
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         out.update(reads=len(sub), unprofiled_ms=sorted(walls)[1],
                    launches=sum(e.count for e in kern),
                    device_ms=sum(e.self_device_time_total for e in kern) / 1e3)
         if not out["launches"]:
-            raise AssertionError("the profiler saw no kernel of the walk")
-        return tb
+            raise AssertionError(f"the profiler saw no kernel of {name}")
+        return res
 
-    mapper.walk_arrows_device = traced
+    setattr(mapper, name, traced)
     try:
         run_mapping(index, sub, params, device="cuda")
     finally:
-        mapper.walk_arrows_device = walk
+        setattr(mapper, name, fn)
     if not out:
-        raise AssertionError("the walk never ran on the profiled batch")
+        raise AssertionError(f"{name} never ran on the profiled batch")
     return out
 
 
@@ -2008,6 +2049,109 @@ def check_resume(genome_fa: str, reads_fq: str, refs: dict, out_dir) -> dict:
             "launches": launches, "dp_launches": dp}
 
 
+def pass_counts(met: dict) -> dict:
+    """What each pass of a run did, from its metrics (``to_dict`` or the
+    CLI's -metrics ``stages``): reads re-mapped and reads changed."""
+    levels = {int(k): v for k, v in met.get("expand_levels", {}).items()}
+    return {"adaptive": [met["adaptive_reads"], met["adaptive_changed"]],
+            **{f"expand{e}": levels.get(e, [0, 0]) for e in (1, 2)},
+            "escalated": [met["escalated_reads"], met["escalation_won"]],
+            "sensitive": [met["sensitive_reads"], met["sensitive_won"]]}
+
+
+def check_modes(genome_fa: str, reads, index, refs: dict, out_dir) -> dict:
+    """Phase 15, the optional mapping modes. (B) each cell of MODES_CELLS
+    through run_mapping in this process at the bench operating point, on
+    phase 4's 256 FASTA reads or the modes corpus (one run each with the
+    stage clock, plain first), its -m 4 lines held to the JAX package's
+    read by read (tools/jax_modes_reference.json, 0 may differ);
+    adaptive_cd's lines also equal the plain cell's, and its full-depth
+    re-map must take at least one read, as must the sensitive retry on the
+    modes corpus; the k = 14 device index is shared by every cell (no
+    second copy of its tables). (A) the CLI with MODES_CLI_FLAGS on the
+    modes corpus (256 CLR FASTQ reads and four planted reads, k = 12 under
+    -useSensitiveSearch), its lines held to the JAX CLI's (0 differing
+    reads, the text equal); both expand levels and the sensitive retry must
+    re-map at least one read. Each run's kernel launches are kept for the
+    kernels line (``launches_modes``)."""
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.io.batching import read_records
+    from blasr_tpu_torch.pipeline.mapper import make_device_index
+
+    reads_modes = bench.ensure_modes_corpus()
+    corpora = {"fasta": (os.path.join(bench.BENCH_DIR, "reads_cli.fasta"), reads[:256]),
+               "modes": (reads_modes, read_records(reads_modes))}
+    cache = getattr(index, "_torch_device_index_cache", {})
+    make_device_index(index, bench.bench_params(), "cuda")
+    n_cached = len(cache)
+    cells = {}
+    for cell, (corpus, overrides) in MODES_CELLS.items():
+        path, cell_reads = corpora[corpus]
+        log(f"phase 15 (B): {cell} {overrides} on {os.path.relpath(path, HERE)}:")
+        res = map_corpus(index, cell_reads, bench.bench_params(**overrides))
+        res["records_vs_jax"] = check_records(cell, res, refs, path, out_dir)
+        res["passes"] = pass_counts(res["metrics"])
+        log(f"  passes (re-mapped, changed): {res['passes']}")
+        cells[cell] = res
+    if len(cache) != n_cached:
+        raise AssertionError(f"the modes built a second device index: {len(cache)} entries "
+                             f"against {n_cached}")
+    # exact_chain's loop on the first batch: at the bench point (A = 128,
+    # C = 4) and at the sensitive retry's anchors and candidates (A = 256, C = 8)
+    chain = {}
+    for tag, kw in (("A128", {}), ("A256", {"max_anchors_per_read": 256, "n_candidates": 8})):
+        chain[tag] = call_profile("chain_weight_device", index, reads[:256],
+                                  bench.bench_params(exact_chain=True, **kw))
+        log(f"  exact_chain's loop, one batch at {tag}: {chain[tag]}")
+    if refs["adaptive"]["digests"] != refs["plain"]["digests"]:
+        raise AssertionError("the JAX reference's adaptive_cd lines differ from its plain ones")
+    if cells["adaptive"]["passes"]["adaptive"][0] <= 0:
+        raise AssertionError("adaptive_cd re-mapped no read")
+
+    if cells["clr_retry"]["passes"]["sensitive"][0] <= 0:
+        raise AssertionError("the sensitive retry re-mapped no read of the modes corpus")
+    ref = refs["modes_cli"]
+    with open(reads_modes, "rb") as f:
+        md5 = hashlib.md5(f.read()).hexdigest()
+    if md5 != ref["reads_md5"]:
+        raise AssertionError(f"modes_cli: reads md5 {md5} != the reference's {ref['reads_md5']}")
+    lines, metrics, secs = run_cli(reads_modes, genome_fa, "modes_cli", MODES_CLI_FLAGS)
+    if out_dir:
+        with open(os.path.join(out_dir, "m4_modes_cli.m4"), "w") as f:
+            f.writelines(ln + "\n" for ln in lines)
+    log(f"phase 15 (A): CLI {' '.join(MODES_CLI_FLAGS)} on {ref['reads_file']}: {secs:.1f} s "
+        f"(process included; index {metrics['indexLoadSeconds']} s, mapping "
+        f"{metrics['mapSeconds']} s)")
+    cli = compare_text("modes_cli", lines, ref, side_file_names("out", lines, None))
+    passes = pass_counts(metrics["stages"])
+    mapped = set(side_file_names("out", lines, None))
+    planted = sorted(n for n in mapped if n.startswith("planted/"))
+    log(f"  passes (re-mapped, changed): {passes}; planted reads mapped {planted} (JAX "
+        f"{ref['planted_mapped']})")
+    if cli["reads_differing"] or not cli["text_equal"]:
+        raise AssertionError(f"the modes CLI's lines differ from the JAX CLI's: {cli}")
+    idle = [p for p in ("expand1", "expand2", "sensitive") if passes[p][0] <= 0]
+    if idle:
+        raise AssertionError(f"passes that re-mapped no read in the modes CLI run: {idle}")
+    launches = {cell: res["launches"] for cell, res in cells.items()}
+    launches["modes_cli"] = metrics["kernelLaunches"]
+    dp = {cell: res["dp_launches"] for cell, res in cells.items()}
+    dp["modes_cli"] = metrics["dpLaunches"]
+    plain = {"fasta": cells["plain"]["reads_per_s"][0],
+             "modes": cells["clr_plain"]["reads_per_s"][0]}
+    log("  reads/s against the plain cell of the same reads (stage clock on in each): "
+        + ", ".join(f"{cell} {res['reads_per_s'][0]:.1f} "
+                    f"({res['reads_per_s'][0] / plain[MODES_CELLS[cell][0]]:.2f}x)"
+                    for cell, res in cells.items()))
+    return {"cells": cells, "chain_profile": chain,
+            "cli": {**cli, "seconds": secs, "passes": passes,
+                                    "planted_mapped": planted,
+                                    "index_seconds": metrics["indexLoadSeconds"],
+                                    "map_seconds": metrics["mapSeconds"],
+                                    "stages": metrics["stages"]},
+            "launches": launches, "dp_launches": dp}
+
+
 def run(out_path: str | None) -> int:
     import torch
 
@@ -2166,6 +2310,12 @@ def run(out_path: str | None) -> int:
     phase14_s = time.time() - t_start - phase_times["14"]
     log(f"phase 14: {phase14_s:.1f} s")
 
+    # ---- phase 15: the optional mapping modes ----
+    mark("15")
+    modes = check_modes(genome_fa, reads, index, refs, out_dir)
+    phase15_s = time.time() - t_start - phase_times["15"]
+    log(f"phase 15: {phase15_s:.1f} s")
+
     # ---- the kernels line ----
     def dp_row(mode):
         return next(r for r in dp_rows if (r["W"], r["L"], r["mode"]) == (*MAIN_DP_SHAPE, mode))
@@ -2177,6 +2327,15 @@ def run(out_path: str | None) -> int:
         "single": sum(config2["dp_launches"].values()),
         "dual": sum(n for k, n in sam["dp_launches"].items() if k.endswith("/dual")),
     }
+    # each kernel's launches on each run of phase 15: the quality-free DP on
+    # the FASTA cells, the single-quality DP on the CLI's FASTQ reads
+    def modes_launches(name, mode=None):
+        if mode is None:
+            return {cell: n[name] for cell, n in modes["launches"].items()}
+        return {cell: sum(v for k, v in dp.items() if k.endswith("/" + mode))
+                for cell, dp in modes["dp_launches"].items()
+                if any(k.endswith("/" + mode) for k in dp)}
+
     kernels = []
     for mode in QUAL_MODES:
         row = dp_row(mode)
@@ -2193,6 +2352,8 @@ def run(out_path: str | None) -> int:
                 "launches_cli_host": cli_host["launches"]["banded_dp"]}
                if mode == "none" else {}),
             **({"launches_resume": resume["launches"]["banded_dp"]} if mode == "single" else {}),
+            **({"launches_modes": modes_launches("banded_dp", mode)}
+               if mode in ("none", "single") else {}),
             "max_abs_err": max(r["max_abs_err"] for r in dp_rows if r["mode"] == mode),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
@@ -2210,6 +2371,7 @@ def run(out_path: str | None) -> int:
             "launches_long": piecewise["long"]["launches"][name],
             "launches_cli_host": cli_host["launches"][name],
             "launches_resume": resume["launches"][name],
+            "launches_modes": modes_launches(name),
             "max_abs_err": max(r["max_abs_err"] for r in g_rows[name]),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2240,8 +2402,14 @@ def run(out_path: str | None) -> int:
         })
     if any(k["launches"] <= 0 or min(k.get(f"launches_{c}", 1) for c in (
             "config4", "k15", "k18", "config5", "long", "cli_host", "resume")) <= 0
+           or min(k.get("launches_modes", {"-": 1}).values()) <= 0
            for k in kernels):
         raise AssertionError(f"a kernel never ran on its path: {kernels}")
+    fastq_runs = {"modes_cli", *(c for c, (corpus, _) in MODES_CELLS.items()
+                                 if corpus == "modes")}
+    if set(modes_launches("banded_dp", "single")) != fastq_runs or set(
+            modes_launches("banded_dp", "none")) != set(MODES_CELLS) - fastq_runs:
+        raise AssertionError(f"phase 15 ran other DP modes than its paths': {modes['dp_launches']}")
     log(f"total {time.time() - t_start:.0f} s")
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
@@ -2255,7 +2423,8 @@ def run(out_path: str | None) -> int:
                 "profile": prof, "fastq": fastq, "cli_sam": sam, "guided": guided,
                 "matrix": matrix, "config3": config3, "config2": config2, "config4": config4,
                 "sa_seeds": sa_seeds, "piecewise": piecewise, "cli_host": cli_host,
-                "resume": resume, "phase14_s": phase14_s, "phase_start_s": phase_times,
+                "resume": resume, "phase14_s": phase14_s, "modes": modes,
+                "phase15_s": phase15_s, "phase_start_s": phase_times,
                 "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
                 "jax_guided_accuracy_cpu": JAX_GUIDED_ACCURACY,
                 "seconds": time.time() - t_start,

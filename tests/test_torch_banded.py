@@ -147,5 +147,9 @@ def test_unported_modes_raise():
         dp_wrapper(*args, knots=torch.zeros((8, 4), dtype=torch.int32), band_width=32)
     with pytest.raises(ValueError, match="shared"):                     # (S, I) via the wrapper
         dp_wrapper(*args[:5], args[5][:, None].repeat(1, 8), band_width=32)
-    with pytest.raises(NotImplementedError):
-        tba.banded_align_plain(*args, band_width=32, global_q=True)
+    # global-in-query scoring is ported to the plain DP (score only)
+    ref = jba.banded_align(*(jnp.asarray(a) for a in (Q, qlen, Tc, tlo, thi, qoff)), None,
+                           band_width=32, global_q=True)
+    got = tba.banded_align_plain(*args, band_width=32, global_q=True)
+    for a, b in zip(ref[:3], got[:3]):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())

@@ -188,15 +188,22 @@ def test_compat_flags_change_no_line(corpus, capsys):
 
 
 def test_only_the_modes_not_ported_are_refused():
+    """Only -ndevices other than 1 is refused; the optional mapping modes
+    parse to their parameters (tests/test_torch_modes_*.py map them)."""
     p = tcli.build_parser()
-    refused = {"-useSensitiveSearch": ["-useSensitiveSearch"],
-               "-maxExpand 2": ["-maxExpand", "2"],
-               "-placeRepeatsRandomly": ["-placeRepeatsRandomly"],
-               "-pvaltype 2": ["-pvaltype", "2"], "-pvaltype 3": ["-pvaltype", "3"],
-               "-ndevices 2": ["-ndevices", "2"], "-ndevices 0": ["-ndevices", "0"]}
+    refused = {"-ndevices 2": ["-ndevices", "2"], "-ndevices 0": ["-ndevices", "0"]}
     for name, argv in refused.items():
-        assert [b.split(" (")[0] for b in tcli.unsupported_options(
-            p.parse_args(["r.fa", "g.fa", *argv]))] == [name]
+        assert tcli.unsupported_options(p.parse_args(["r.fa", "g.fa", *argv])) == [name]
+    accepted = {("-useSensitiveSearch",): dict(sensitive_retry=True, min_match_length=12,
+                                               n_candidates=10),
+                ("-maxExpand", "2"): dict(max_expand=2),
+                ("-placeRepeatsRandomly",): dict(place_repeats_randomly=True),
+                ("-pvaltype", "2"): dict(pval_type=2), ("-pvaltype", "3"): dict(pval_type=3)}
+    for argv, fields in accepted.items():
+        args = p.parse_args(["r.fa", "g.fa", *argv])
+        assert tcli.unsupported_options(args) == []
+        params = tcli.params_from_args(args)
+        assert {f: getattr(params, f) for f in fields} == fields
     # -minExpand above -maxExpand raises max_expand with it: no retry pass
     args = p.parse_args(["r.fa", "g.fa", "-minExpand", "2", "-sdpTupleSize", "9"])
     assert tcli.unsupported_options(args) == []
@@ -252,8 +259,8 @@ def _stream(reads_path, genome, argv, n_args, **kw):
     def on_batch4(bi, recs, unm, held):
         on_batch3(bi, recs, unm)
         held_names.update(held)
-        for name, rs in held.items():
-            assert rs and all(r.qname == name for r in rs)
+        for name, h in held.items():
+            assert h.records and all(r.qname == name for r in h.records)
 
     met = MappingMetrics()
     recs, unm = run_mapping(load_index(genome, k=13), read_records(reads_path), params,

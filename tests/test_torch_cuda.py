@@ -686,3 +686,68 @@ def test_sa_anchors_on_the_card_equal_cpu(dev, k, expand):
     for a, b in zip(cpu, gpu):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert int(cpu[3].sum()) > 300
+
+
+def test_chain_weight_on_the_card_equals_cpu(dev):
+    """exact_chain's loop on the card: the same int32 weights as on the CPU."""
+    from blasr_tpu_torch.ops.candidates import chain_weight_device
+
+    rng = np.random.default_rng(23)
+    B, A, C, k, win = 64, 128, 4, 14, 128
+    t = rng.integers(0, 40_000, (B, A)).astype(np.int32)
+    q = rng.integers(0, 800, (B, A)).astype(np.int32)
+    for b in range(B):
+        sel = rng.choice(A, 40, replace=False)
+        t[b, sel] = q[b, sel] + 5_000 + rng.integers(0, win, 40)
+    valid = rng.random((B, A)) < 0.8
+    dstar = np.stack([(t[b] - q[b])[rng.choice(A, C, replace=False)] for b in range(B)])
+    cvalid = rng.random((B, C)) < 0.9
+    args = [torch.from_numpy(a) for a in (t, q, valid, dstar, cvalid)]
+    cpu = chain_weight_device(*args, k=k, win=win)
+    gpu = chain_weight_device(*[a.to(dev) for a in args], k=k, win=win)
+    assert torch.equal(gpu.cpu(), cpu) and (cpu > 0).any()
+
+
+@pytest.mark.parametrize("mode", [dict(pval_type=2), dict(pval_type=3), dict(exact_chain=True),
+                                  dict(adaptive_cd=True, max_expand=2, sensitive_retry=True)],
+                         ids=["pvaltype2", "pvaltype3", "exact_chain", "passes"])
+def test_modes_on_the_card_equal_cpu(dev, mode):
+    """The ranking modes' wire bytes and every mode's -m 4 lines on the card
+    equal the CPU's: an 80 kb genome with a repeat, reads that map plainly,
+    from the repeat, with a substitution every 11 bases (the expand
+    cascade's) and at about 77% similarity (the sensitive retry's)."""
+    from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+    from blasr_tpu_torch.io.batching import Read, batch_reads
+    from blasr_tpu_torch.io.seqdb import SeqDB
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.params import MappingParams
+    from blasr_tpu_torch.pipeline.mapper import Mapper
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    rng = np.random.default_rng(41)
+    g = rng.integers(0, 4, 80_000).astype(np.uint8)
+    g[50_000:52_000] = g[10_000:12_000]
+    index = build_index_from_arrays(g, SeqDB(["ref"], np.array([0, len(g)]), ["0" * 32]), k=11)
+    reads = []
+    for i, s in enumerate((15_000, 16_000, 17_000, 10_300, 10_900, 24_000, 54_000, 26_000)):
+        r = g[s : s + 200 + 5 * i].copy()
+        if i < 5:
+            r[5::19] = (r[5::19] + 1) % 4
+        elif i < 7:
+            r[6::11] = (r[6::11] + 1) % 4
+        else:
+            for b in range(120, len(r), 16):
+                r[b + 1 : b + 15 : 2] = (r[b + 1 : b + 15 : 2] + 1) % 4
+        reads.append(Read(f"r{i}", r, None, i))
+    params = MappingParams(batch_size=4, max_read_len=256, n_candidates=4, n_dp_candidates=2,
+                           anchor_stride=4, max_anchors_per_read=128, narrow_band=32,
+                           narrow_band_max=256, min_match_length=11, direct_lut=True,
+                           emit_moves=False, best_n=1, **mode)
+    cpu_m, gpu_m = Mapper(index, params, device="cpu"), Mapper(index, params, device="cuda")
+    for b in batch_reads(reads, params.batch_size, params.max_read_len):
+        assert torch.equal(gpu_m.map_batch(b.codes, b.lengths).wire.cpu(),
+                           cpu_m.map_batch(b.codes, b.lengths).wire)
+    cpu = run_mapping(index, reads, params, device="cpu")
+    gpu = run_mapping(index, reads, params, device="cuda")
+    assert [format_m4(r) for r in gpu[0]] == [format_m4(r) for r in cpu[0]]
+    assert gpu[1] == cpu[1] and cpu[0]
