@@ -1,5 +1,5 @@
-"""Command line of the port: mapping on one device to -m 0, 1, 2, 3, 4 or 5,
-SAM or BAM.
+"""Command line of the port: mapping to -m 0, 1, 2, 3, 4 or 5, SAM or
+BAM.
 
     python -m blasr_tpu_torch.cli.blasr reads.{fa,fastq,sam,bam} genome.fa -m 4 \\
         [-out FILE] [-header] [-device cuda|cpu] [mapping options]
@@ -13,8 +13,9 @@ is: the compatibility flags the JAX CLI accepts (``-nproc``,
 and the long tail of reference flags, ``cli/args.py``) are accepted and
 change nothing; those that name a file (``-ctab``, ``-seqdb``,
 ``-findex``, ``-regionTable``, ``-fileType``) and
-``-computeAlignProbability`` say so on stderr. Only ``-ndevices`` other
-than 1 is refused, by name (``unsupported_options``).
+``-computeAlignProbability`` say so on stderr. ``-ndevices N`` splits
+each batch over the first N visible CUDA devices (0: all of them), as
+the JAX CLI does (``parallel/mesh.py``).
 ``-useSensitiveSearch`` re-maps the unmapped reads and those below 80%
 similarity with twice the candidates and anchors (and takes seeds of at
 most 12 bases and at least 10 candidates for the whole run);
@@ -94,14 +95,6 @@ def build_parser():
                      "(-m 0-5, -sam, BAM)")
     p.add_argument("-device", default="cuda", help="torch device to map on (cuda or cpu)")
     return p
-
-
-def unsupported_options(args) -> list[str]:
-    """The options given that select a mode the port does not have yet
-    (ROADMAP.md queue 1, item 16: mapping over several devices), by name.
-    Every other flag of the JAX CLI is honoured or, as there, accepted and
-    changes nothing."""
-    return [f"-ndevices {args.ndevices}"] if args.ndevices != 1 else []
 
 
 def warn_noop_flags(args) -> None:
@@ -406,12 +399,6 @@ def run_resumable(args, params, index, reads, fm, metrics):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    bad = unsupported_options(args)
-    if bad:
-        raise SystemExit(
-            "blasr_tpu_torch: not supported by the port yet: " + ", ".join(bad)
-            + " (see ROADMAP.md)"
-        )
     params = params_from_args(args)
     params.validate()
     warn_noop_flags(args)

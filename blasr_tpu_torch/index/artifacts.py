@@ -67,8 +67,11 @@ class GenomeIndex:
     def genome_length(self) -> int:
         return int(self.genome.shape[0])
 
-    def save(self, path: str) -> None:
-        np.savez_compressed(
+    def save(self, path: str, compress: bool = True) -> None:
+        # sharded caches save uncompressed: a 200 Mb shard's zlib decompress
+        # costs ~a minute per serve-time load, dwarfing the disk read
+        savez = np.savez_compressed if compress else np.savez
+        savez(
             path,
             version=np.int64(INDEX_VERSION),
             genome=self.genome,
@@ -177,3 +180,19 @@ def load_index(genome_path: str, k: int = 14, cache: bool = True) -> GenomeIndex
         except OSError:
             pass
     return idx
+
+
+def build_count_table(genome: np.ndarray, k: int = 8) -> np.ndarray:
+    """Dense 4^k genome k-mer count table.
+
+    Role of reference ``TupleCountTable`` (datastructures/tuplelists/
+    TupleCountTable.h:11-90, built on the fly at Blasr.cpp:4479-4483): the
+    background k-mer frequency model behind anchor p-values. The mapping
+    pipeline gets the same information from SA-interval widths at the full
+    anchor length; this dense table serves the satellite tools and the
+    explicit-ctab workflow.
+    """
+    keys, valid = pack_kmers(genome, k)
+    return np.bincount(keys[valid].astype(np.int64), minlength=4**k).astype(
+        np.int32
+    )

@@ -1,6 +1,6 @@
 """FM-index construction (L2, host side); the port's copy of
-``blasr_tpu/index/fm.py`` (without ``fm_reconstruct``, which only the
-bwtutils tools use).
+``blasr_tpu/index/fm.py``, with ``fm_reconstruct``, which only the
+bwtutils tools use.
 
 Role of reference ``common/datastructures/bwt/BWT.h`` (:45 ``Bwt<>``,
 Occ two-level tables at Occ.h:44, sampled-SA ``Pos`` at Pos.h:30, built
@@ -160,3 +160,38 @@ def locate_host(fm: FMIndex, row: int) -> int:
             return steps - 1 if steps else fm.n - 1
         row = int(fm.C[c]) + occ_host(fm, c, row)
         steps += 1
+
+
+def fm_reconstruct(fm: FMIndex) -> tuple[np.ndarray, np.ndarray]:
+    """Invert the FM-index: recover (genome, full-rotation SA) from the BWT
+    alone — the completeness property reference ``bwt2sa`` relies on
+    (bwtutils/BwtToSuffixArray.cpp:24-27 calls ``Locate`` per row; here the
+    whole LF orbit is materialised with O(log n) pointer-doubling gathers
+    instead of n sequential walks).
+
+    Returns ``(genome codes (G,), sa_full (n,) int64)`` where ``sa_full``
+    includes the sentinel row (sa_full[0] == G) in this framework's
+    $-first row order.
+    """
+    n = fm.n
+    G = n - 1
+    bwt = fm.bwt_rows.reshape(-1)[:n]
+    # vectorized LF: LF[i] = C[bwt[i]] + rank_{bwt[i]}(i)
+    lf = np.zeros(n, np.int64)
+    for c in range(6):
+        m = bwt == c
+        base = 0 if c == SENTINEL else int(fm.C[c])
+        lf[m] = base + np.arange(int(m.sum()), dtype=np.int64)
+    # orbit of row 0 under LF: row_k = row of rotation (G - k) mod n
+    S = np.zeros(1, np.int64)
+    P = lf
+    while len(S) < n:
+        S = np.concatenate([S, P[S]])
+        if len(S) < n:
+            P = P[P]
+    S = S[:n]
+    sa_full = np.empty(n, np.int64)
+    sa_full[S] = G - np.arange(n, dtype=np.int64)
+    # text[p] = bwt[row of rotation p+1] = bwt[S[G-p-1]]
+    genome = bwt[S[:G][::-1]].astype(np.uint8)
+    return genome, sa_full

@@ -1,39 +1,99 @@
-"""SAM reading (L1): reads and their samqv tracks from SAM input.
+"""SAM reading (L1) + SAM-record utilities for satellite tools.
 
-The port's copy of the input half of ``blasr_tpu/io/sam.py`` (:1-183).
 Role of reference ``common/algorithms/alignment/readers/sam/SAMReader.h``
-(header + alignment-line parsing) and ``SAMToSMRTSequence`` (the read in
-its original orientation), as a flat parse. SAM text, ``.sam.gz`` and BAM
-(through ``io/bam.read_bam``) are read.
+(header + alignment-line parsing into typed records) and the
+``SAMAlignment``/``SAMToSMRTSequence`` object model in
+``common/datastructures/alignmentset/`` — re-designed as a flat numpy/
+dataclass parse (no template machinery needed host-side).
+
+The port's copy of ``blasr_tpu/io/sam.py``, whole.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
 
 import numpy as np
 
 from blasr_tpu_torch.core.encode import revcomp_codes, seq_to_codes
 
+_CIGAR_RE = re.compile(rb"(\d+)([MIDNSHP=X])")
+
 
 @dataclasses.dataclass
 class SAMRecord:
     qname: str
     flag: int
+    rname: str
+    pos: int                     # 1-based leftmost mapping position
+    mapq: int
+    cigar: str
     seq: str
     qual: Optional[np.ndarray]   # phred values or None
     tags: dict[str, str]
 
     @property
+    def is_unmapped(self) -> bool:
+        return bool(self.flag & 4)
+
+    @property
     def is_reverse(self) -> bool:
         return bool(self.flag & 16)
+
+    def cigar_runs(self) -> list[tuple[str, int]]:
+        return [
+            (op.decode(), int(n))
+            for n, op in _CIGAR_RE.findall(self.cigar.encode())
+        ]
+
+    def aligned_lengths(self) -> tuple[int, int, int, int]:
+        """(qstart, qend, tlen_consumed, qlen) from the CIGAR."""
+        qpos = 0
+        qstart = None
+        tlen = 0
+        for op, n in self.cigar_runs():
+            if op in "SH":
+                if qstart is None and op == "S":
+                    qpos += n
+                continue
+            if op in "M=X":
+                if qstart is None:
+                    qstart = qpos
+                qpos += n
+                tlen += n
+            elif op == "I":
+                if qstart is None:
+                    qstart = qpos
+                qpos += n
+            elif op in "DN":
+                tlen += n
+        qlen = len(self.seq) if self.seq != "*" else qpos
+        # hard clips extend the original read beyond SEQ
+        hard = sum(n for op, n in self.cigar_runs() if op == "H")
+        return (qstart or 0, qpos, tlen, qlen + hard)
 
 
 @dataclasses.dataclass
 class SAMFile:
     header_lines: list[str]
     records: list[SAMRecord]
+
+    @property
+    def ref_lengths(self) -> dict[str, int]:
+        out = {}
+        for line in self.header_lines:
+            if line.startswith("@SQ"):
+                name = ln = None
+                for fld in line.split("\t")[1:]:
+                    if fld.startswith("SN:"):
+                        name = fld[3:]
+                    elif fld.startswith("LN:"):
+                        ln = int(fld[3:])
+                if name is not None and ln is not None:
+                    out[name] = ln
+        return out
 
 
 def _fields_to_record(fields: list[str]) -> SAMRecord:
@@ -46,7 +106,9 @@ def _fields_to_record(fields: list[str]) -> SAMRecord:
     if fields[10] != "*":
         qual = np.frombuffer(fields[10].encode(), np.uint8) - 33
     return SAMRecord(
-        qname=fields[0], flag=int(fields[1]), seq=fields[9], qual=qual, tags=tags,
+        qname=fields[0], flag=int(fields[1]), rname=fields[2],
+        pos=int(fields[3]), mapq=int(fields[4]), cigar=fields[5],
+        seq=fields[9], qual=qual, tags=tags,
     )
 
 
@@ -84,7 +146,7 @@ def sam_records_to_reads(sam: SAMFile):
 
     out = []
     seen: set[str] = set()
-    for rec in sam.records:
+    for i, rec in enumerate(sam.records):
         if rec.flag & 0x900:  # secondary/supplementary: not the full read
             continue
         if rec.qname in seen or rec.seq == "*":

@@ -5,6 +5,12 @@ The three hand-written CUDA kernels of the mapping path are reached through
 ``gather.gather_rows``; each wrapper counts its kernel launches.
 """
 
+import threading
+
+# the counters are read-modify-writes, and the sharded path launches from
+# one thread per shard
+COUNT_LOCK = threading.Lock()
+
 
 def kernel_wrappers() -> dict:
     """Name -> wrapper of every kernel on the mapping path."""

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from blasr_tpu_torch.ops import _build
+from blasr_tpu_torch.ops import COUNT_LOCK, _build
 from blasr_tpu_torch.ops.banded_align import (
     AlignScores,
     BandedResult,
@@ -126,12 +126,13 @@ def banded_align(
                      + (["guided"] if knots is not None else [])
                      + (["matrix"] if matrix is not None else []))
     _build.check(err, f"banded_dp (W={W}, {what})")
-    banded_align.launches += 1
-    banded_align.launches_by_shape[(W, mode)] += 1
-    if knots is not None:
-        banded_align.launches_by_shape[(W, "guided")] += 1
-    if matrix is not None:
-        banded_align.launches_by_shape[(W, "matrix")] += 1
+    with COUNT_LOCK:
+        banded_align.launches += 1
+        banded_align.launches_by_shape[(W, mode)] += 1
+        if knots is not None:
+            banded_align.launches_by_shape[(W, "guided")] += 1
+        if matrix is not None:
+            banded_align.launches_by_shape[(W, "matrix")] += 1
     return BandedResult(best[0], best[1], best[2], arrows)
 
 

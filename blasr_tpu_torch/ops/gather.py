@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from blasr_tpu_torch.ops import _build
+from blasr_tpu_torch.ops import COUNT_LOCK, _build
 
 
 def gather_spans_plain(src: torch.Tensor, starts: torch.Tensor, span: int) -> torch.Tensor:
@@ -85,7 +85,8 @@ def gather_spans(src: torch.Tensor, starts: torch.Tensor, span: int) -> torch.Te
     err = launch(src.data_ptr(), src.shape[0], starts.data_ptr(), out.data_ptr(), I, span,
                  stream(src.get_device()))
     _build.check(err, "gather_spans")
-    gather_spans.launches += 1
+    with COUNT_LOCK:
+        gather_spans.launches += 1
     return out
 
 
@@ -109,8 +110,9 @@ def gather_rows(src2d: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     vec = vector_width(sp, op, Lr)
     err = launch(sp, R, Lr, rows.data_ptr(), op, I, vec, stream(src2d.get_device()))
     _build.check(err, "gather_rows")
-    gather_rows.launches += 1
-    gather_rows.launches_by_path[vec] += 1
+    with COUNT_LOCK:
+        gather_rows.launches += 1
+        gather_rows.launches_by_path[vec] += 1
     return out
 
 

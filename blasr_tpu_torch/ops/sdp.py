@@ -1,8 +1,8 @@
 """Sparse dynamic programming alignment on the host, the gap filler of
 piecewise mapping.
 
-Port of ``blasr_tpu.ops.sdp`` (without ``graph_paper_filter``, which no
-mapping path calls). Role of reference ``SDPAlign``
+Port of ``blasr_tpu.ops.sdp``, with ``graph_paper_filter``, the seed
+grid pre-filter that no mapping path calls. Role of reference ``SDPAlign``
 (common/algorithms/alignment/SDPAlign.h:25,96) and its sweep core
 ``SDPLongestCommonSubsequence`` (sdp/SparseDynamicProgramming.h:71-322):
 align a query against a target window by (1) k-mer merge-join seeding,
@@ -195,3 +195,73 @@ def sdp_align(
             score += word * scores.match
             pq, pt = int(cq[i]) + word, int(ct[i]) + word
     return np.concatenate(parts) if parts else np.zeros(0, np.uint8), score
+
+
+def graph_paper_filter(
+    qs: np.ndarray,
+    ts: np.ndarray,
+    lens: np.ndarray,
+    n_rows: int = 40,
+    n_cols: int = 40,
+    min_score: int = 0,
+    max_score: int = 1 << 30,
+) -> np.ndarray:
+    """Coarse-grid pre-filter for seed sets (role of reference
+    ``GraphPaper`` — common/algorithms/alignment/GraphPaper.h:49-130):
+    bin seeds into an (n_rows, n_cols) grid over the seed bounding box,
+    run a diagonal/left/up max-score DP over bin masses (indel penalty =
+    average bin mass), and keep only seeds whose cell lies on the optimal
+    grid path. Returns a boolean mask over the input seeds.
+
+    Used to thin pathological seed sets (repeat storms) before the exact
+    sparse chain; colinear evidence survives, off-path noise drops.
+    """
+    n = len(qs)
+    if n == 0:
+        return np.zeros(0, bool)
+    x = np.asarray(qs, np.int64)
+    y = np.asarray(ts, np.int64)
+    ln = np.asarray(lens, np.int64)
+    x0, x1 = int(x.min()), int(x.max()) + 1
+    y0, y1 = int(y.min()), int(y.max()) + 1
+    ri = np.minimum(((x - x0) * n_rows) // max(x1 - x0, 1), n_rows - 1)
+    ci = np.minimum(((y - y0) * n_cols) // max(y1 - y0, 1), n_cols - 1)
+    bins = np.zeros((n_rows, n_cols), np.int64)
+    np.add.at(bins, (ri, ci), ln)
+    bins = np.minimum(bins, max_score)
+    bins[bins < min_score] = 0
+    pen = max(1, int(ln.sum()) // (n_rows * n_cols + 1))
+
+    score = np.zeros((n_rows + 1, n_cols + 1), np.int64)
+    move = np.zeros((n_rows + 1, n_cols + 1), np.int8)  # 0 diag 1 left 2 up
+    for r in range(1, n_rows + 1):
+        diag = score[r - 1, :-1] + bins[r - 1]
+        up = score[r - 1, 1:] - pen
+        row = score[r]
+        best = np.maximum(diag, up)
+        mv = np.where(diag >= up, 0, 2).astype(np.int8)
+        acc = row[0]
+        for c in range(1, n_cols + 1):
+            left = acc - pen
+            if best[c - 1] >= left:
+                row[c] = best[c - 1]
+                move[r, c] = mv[c - 1]
+            else:
+                row[c] = left
+                move[r, c] = 1
+            acc = row[c]
+    # traceback, marking EVERY cell on the path (the reference Stars the
+    # cell for diagonal, left and up moves alike, GraphPaper.h:163-171)
+    on = np.zeros((n_rows, n_cols), bool)
+    r, c = n_rows, n_cols
+    while r > 0 and c > 0:
+        on[r - 1, c - 1] = True
+        m = move[r, c]
+        if m == 0:
+            r -= 1
+            c -= 1
+        elif m == 1:
+            c -= 1
+        else:
+            r -= 1
+    return on[ri, ci]

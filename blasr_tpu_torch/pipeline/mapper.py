@@ -234,6 +234,9 @@ def make_device_index(
     The entry pins the fm it was built from, so a recycled ``id()`` never
     aliases a live entry."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        # "cuda" and "cuda:0" are one device: one cache entry
+        device = torch.device("cuda", torch.cuda.current_device())
     kind = _sa_kind(idx, params.direct_lut) if fm is None else "fm"
     key = (params.max_read_len + params.target_len, str(device), kind,
            id(fm) if fm is not None else None)
@@ -432,6 +435,23 @@ class StageClock:
             torch.cuda.synchronize(self.device)
 
 
+def slope_median(slopes: torch.Tensor) -> torch.Tensor:
+    """The drift slope the whole batch's band schedule follows: the median
+    of the items' slopes (NaN for an item without a fit), 0 when no item
+    has one."""
+    return torch.nan_to_num(_nanmedian(slopes), nan=0.0)
+
+
+def finish_steps(steps, slope_med: torch.Tensor | None) -> MapBatchResult:
+    """Hand a started ``map_batch_steps`` the batch's slope median and run
+    it to its result."""
+    try:
+        steps.send(slope_med)
+    except StopIteration as stop:
+        return stop.value
+    raise RuntimeError("map_batch_steps yielded twice")
+
+
 def map_batch_impl(
     codes: torch.Tensor,          # (B, L) uint8
     lengths: torch.Tensor,        # (B,) int32
@@ -440,6 +460,25 @@ def map_batch_impl(
     qual: torch.Tensor | None = None,  # (B, L) uint8, or int16 (dual)
     clock: StageClock | None = None,
 ) -> MapBatchResult:
+    steps = map_batch_steps(codes, lengths, di, params, qual, clock)
+    slopes = next(steps)
+    return finish_steps(steps, None if slopes is None else slope_median(slopes))
+
+
+def map_batch_steps(
+    codes: torch.Tensor,
+    lengths: torch.Tensor,
+    di: DeviceIndex,
+    params: MappingParams,
+    qual: torch.Tensor | None = None,
+    clock: StageClock | None = None,
+):
+    """``map_batch_impl`` as a generator cut at its one reduction over the
+    whole batch, so that a batch split over devices (``parallel/mesh.py``)
+    shares it. It first yields the items' drift slopes, NaN where an item
+    has no fit (None when the band is 128 or wider and no slope is fitted);
+    sent the median over the whole batch (``slope_median``), it runs on
+    and returns the ``MapBatchResult``."""
     dev = codes.device
     B, L = codes.shape
     C = params.n_candidates
@@ -580,9 +619,7 @@ def map_batch_impl(
         slope_i = torch.where(
             ok, (n_a * sqd - sq * sd) / torch.clamp(denom, min=1.0), float("nan")
         )
-        slope_med = torch.nan_to_num(
-            _nanmedian(torch.where(cvalid, slope_i, float("nan"))), nan=0.0
-        )
+        slope_med = yield torch.where(cvalid, slope_i, float("nan"))
         slope_med = torch.clamp(slope_med, -0.15, 0.15)
         two = torch.full_like(slope_med, 2.0)
         qoff_num = torch.round(
@@ -600,6 +637,7 @@ def map_batch_impl(
         dt = torch.clamp(dt, -pad2 // 2, pad2 // 2)
         d0 = torch.where(have, d0 + dt, d0)
     else:
+        yield None
         qoff_num = torch.tensor(QOFF_NUM_HALF, dtype=I32, device=dev)
     qoff = make_qoff_num(L, T, W, pad2, qoff_num)
 
@@ -782,7 +820,11 @@ def map_batch_wire(
     clock: StageClock | None = None,
 ) -> torch.Tensor:
     """``map_batch_impl`` flattened to one uint8 buffer on the device."""
-    res = map_batch_impl(codes, lengths, di, params, qual, clock)
+    return wire_bytes(map_batch_impl(codes, lengths, di, params, qual, clock))
+
+
+def wire_bytes(res: MapBatchResult) -> torch.Tensor:
+    """A batch's result as the one uint8 buffer ``unpack_result`` reads."""
     return torch.cat([
         res.sel_ints.contiguous().view(torch.uint8).reshape(-1),
         res.moves_packed.reshape(-1),
@@ -790,9 +832,39 @@ def map_batch_wire(
     ])
 
 
+def require_device(device: str | torch.device) -> torch.device:
+    """``device`` as a ``torch.device``; raises when it is a CUDA device
+    this machine does not have (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device}: torch.cuda.is_available() is False")
+        if device.index is not None and device.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"device {device}: only {torch.cuda.device_count()} CUDA device(s) visible")
+    return device
+
+
+def host_qual(qual: np.ndarray | None, params: MappingParams) -> np.ndarray | None:
+    """A batch's phred rows as the DP reads them: uint8, or the dual
+    stream's uint16 bits viewed as int16; None when the params ignore
+    qualities."""
+    if qual is None or params.ignore_qualities:
+        return None
+    if qual.dtype == np.uint16:
+        return qual.view(np.int16)
+    if qual.dtype != np.uint8:
+        raise ValueError(f"qual: expected uint8 or uint16, got {qual.dtype}")
+    return qual
+
+
 @dataclasses.dataclass
 class Mapper:
-    """Holds the device index and maps padded batches on ``device``."""
+    """Holds the device index and maps padded batches on ``device``, or
+    split over ``devices`` (``parallel/mesh.py``): those given, which may
+    repeat one device, or with ``params.ndevices`` other than 1 the
+    visible CUDA devices as the JAX package's ``Mapper`` picks them. A
+    split batch's result gathers on the first of them."""
 
     index: GenomeIndex
     params: MappingParams
@@ -800,16 +872,19 @@ class Mapper:
     device: str | torch.device
     clock: StageClock | None = None  # per-stage timing (measurement runs)
     fm: object = None                # an index.fm.FMIndex: the -bwt anchoring path
+    devices: list | None = None      # the devices a batch is split over
 
     def __post_init__(self):
+        from blasr_tpu_torch.parallel.mesh import mapper_devices, replicate_index
+
         self.params.validate()
-        self.device = torch.device(self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Mapper(device='cuda'): torch.cuda.is_available() is False"
-            )
-        if self.params.ndevices != 1:
-            raise NotImplementedError("multi-device mapping is not ported yet")
+        self.device = require_device(self.device)
+        devs = mapper_devices(self.params, self.device, self.devices)
+        if devs:
+            self.device = devs[0]
+        self.devices = devs if devs and len(devs) > 1 else None
+        self.replicas = (None if self.devices is None else
+                         replicate_index(self.devices, self.index, self.params, fm=self.fm))
         self.device_index = make_device_index(self.index, self.params, self.device, fm=self.fm)
 
     def map_batch(
@@ -819,16 +894,20 @@ class Mapper:
         or uint16 for the dual stream (``io.batching.batch_reads``); it is
         dropped when the params ignore qualities."""
         p = self.params
-        codes_d = torch.from_numpy(np.ascontiguousarray(codes)).to(self.device)
-        lengths_d = torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(self.device)
-        qual_d = None
-        if qual is not None and not p.ignore_qualities:
-            if qual.dtype == np.uint16:
-                qual = qual.view(np.int16)         # the dual stream's bits
-            elif qual.dtype != np.uint8:
-                raise ValueError(f"qual: expected uint8 or uint16, got {qual.dtype}")
-            qual_d = torch.from_numpy(np.ascontiguousarray(qual)).to(self.device)
-        wire = map_batch_wire(codes_d, lengths_d, self.device_index, p, qual_d, self.clock)
+        qual = host_qual(qual, p)
+        if self.devices is not None:
+            from blasr_tpu_torch.parallel.mesh import sharded_map_batch
+
+            wire = wire_bytes(sharded_map_batch(
+                self.devices, self.index, p, codes, lengths, qual, fm=self.fm,
+                replicas=self.replicas))
+        else:
+            def dev(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+            wire = map_batch_wire(dev(codes), dev(lengths.astype(np.int32, copy=False)),
+                                  self.device_index, p,
+                                  None if qual is None else dev(qual), self.clock)
         B, L = codes.shape
         S = L + p.target_pad + L - 1
         return WireResult(

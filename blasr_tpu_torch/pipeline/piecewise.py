@@ -311,13 +311,14 @@ def run_mapping_piecewise(
     clock: StageClock | None = None,
     fm=None,
     split_if_longer: int | None = None,
+    devices: list | None = None,
 ) -> tuple[list[AlignmentRecord], list[str]]:
     """Map with long-query segmentation + piecewise stitching, on ``device``.
 
     ``split_if_longer`` keeps mid-size reads whole (the auto-segment path
     passes max_read_len so only reads beyond the pad bound segment);
     explicit -alignContigs segments everything above segment_length.
-    ``metrics``, ``clock`` and ``fm`` are ``run_mapping``'s: both inner
+    ``metrics``, ``clock``, ``fm`` and ``devices`` are ``run_mapping``'s: both inner
     runs (the reads passed through, then the segments) add their counters
     into ``metrics``, which also counts the segments, the reads passed
     through, the stitched records, the SDP gap fills and the host seconds
@@ -339,7 +340,7 @@ def run_mapping_piecewise(
                            base_params.dp_candidates))
     recs: list[AlignmentRecord] = []
     unmapped: list[str] = []
-    run_kw = dict(device=device, clock=clock, fm=fm)
+    run_kw = dict(device=device, clock=clock, fm=fm, devices=devices)
     if pass_through:
         sub = MappingMetrics()
         r1, u1 = run_mapping(index, pass_through, base_params, metrics=sub, **run_kw)

@@ -1,4 +1,5 @@
-"""End-to-end mapping run: reads -> alignment records, on one device.
+"""End-to-end mapping run: reads -> alignment records, on one device or a
+batch split over several (``devices``, ``params.ndevices``).
 
 Port of ``blasr_tpu.pipeline.runner.run_mapping``: padded
 length-bucketed batches go through ``Mapper.map_batch`` on ``device``
@@ -277,8 +278,11 @@ def run_mapping(
     on_batch=None,
     skip_batches: int = 0,
     carried: dict | None = None,
+    devices: list | None = None,
 ) -> tuple[list[AlignmentRecord], list[str]]:
     """Map reads on ``device``; returns (alignments, unmapped read names).
+    ``devices`` (or ``params.ndevices``) splits each batch over several
+    devices, as ``Mapper`` says.
 
     After the first pass over the batches come the JAX package's passes,
     in its order, each a nested run over the reads it re-maps: the
@@ -323,7 +327,7 @@ def run_mapping(
 
         return run_mapping_piecewise(
             index, reads, params, device=device, metrics=metrics, clock=clock, fm=fm,
-            split_if_longer=params.max_read_len,
+            split_if_longer=params.max_read_len, devices=devices,
         )
     met = metrics if metrics is not None else MappingMetrics()
     t_run0 = time.time()
@@ -333,7 +337,7 @@ def run_mapping(
     # replaced wholesale
     adaptive = params.adaptive_cd and params.best_n == 1 and params.dp_candidates > 1
     map_params = dataclasses.replace(params, n_dp_candidates=1) if adaptive else params
-    mapper = Mapper(index, map_params, device=device, clock=clock, fm=fm)
+    mapper = Mapper(index, map_params, device=device, clock=clock, fm=fm, devices=devices)
     out: list[AlignmentRecord] = []
     unmapped: list[str] = []
     if params.min_read_length > 0 or params.min_avg_qual > 0:
@@ -430,7 +434,7 @@ def run_mapping(
     def nested(sub_reads, p):
         sub = MappingMetrics()
         recs, unm = run_mapping(index, sub_reads, p, device=device, metrics=sub,
-                                clock=clock, fm=fm)
+                                clock=clock, fm=fm, devices=devices)
         met.add(sub, PASS_FIELDS)
         return recs, unm
 

@@ -1,16 +1,16 @@
-"""Read simulator (the port's copy of ``blasr_tpu/sim.py``).
+"""Read simulator (L8 satellite: role of reference ``simulator/alchemy`` +
+``sequtils/Evolve.cpp`` + ``simpleShredder``).
 
-Role of reference ``simulator/alchemy`` + ``simpleShredder``: synthetic
-genomes and PacBio-like noisy reads with known true positions encoded in
-the read title (the reference's ``-posMap``/title convention
-``>read_index|chr|start|end``), so mapping accuracy can be scored without
-real data. The same seed gives the same reads, byte for byte, as the JAX
-package's ``sim``.
+Generates synthetic genomes and PacBio-like noisy reads with known true
+positions encoded in the read title (the reference's ``-posMap``/title
+convention ``>read_index|chr|start|end``), so mapping accuracy can be scored
+without real data.
+
+The port's copy of ``blasr_tpu/sim.py``, whole. The same seed gives the
+same reads, byte for byte, as the JAX package's ``sim``.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 
@@ -78,6 +78,37 @@ def parse_truth(name: str) -> tuple[int, int, int]:
     return int(parts[2]), int(parts[3]), int(parts[4])
 
 
+def shred_genome(
+    genome: np.ndarray,
+    seqdb,
+    read_length: int,
+    coverage: float = 1.0,
+    seed: int = 0,
+) -> list[tuple[str, np.ndarray]]:
+    """Shred a genome into error-free reads (role of sequtils simpleShredder).
+
+    Tiles each contig with reads of ``read_length``; coverage > 1 adds
+    additional randomly-offset passes.
+    """
+    rng = np.random.default_rng(seed)
+    out: list[tuple[str, np.ndarray]] = []
+    starts = seqdb.starts
+    idx = 0
+    n_pass = max(1, int(np.ceil(coverage)))
+    for ci, name in enumerate(seqdb.names):
+        lo, hi = int(starts[ci]), int(starts[ci + 1])
+        for p in range(n_pass):
+            ofs = 0 if p == 0 else int(rng.integers(0, read_length))
+            for s in range(lo + ofs, hi, read_length):
+                e = min(s + read_length, hi)
+                if e - s < read_length // 4:
+                    continue
+                out.append((f"shred/{idx}|{name}|{s - lo}|{e - lo}|0",
+                            genome[s:e].copy()))
+                idx += 1
+    return out
+
+
 def evolve_sequence(
     codes: np.ndarray,
     sub_rate: float,
@@ -114,12 +145,17 @@ def evolve_sequence(
 # ---- alchemy-style simulation (context-conditioned error model) ----------
 #
 # Role of reference ``simulator/Alchemy.cpp`` (read simulator driven by an
-# empirical length histogram + per-context error/quality samples). The
-# model conditions (sub, ins, del) rates and emitted quality values on the
-# preceding base context.
+# empirical length histogram + per-context error/quality samples) and
+# ``simulator/StoreQualityByContext.cpp`` (build that model from real
+# alignments). The model here conditions (sub, ins, del) rates and emitted
+# quality values on the preceding base context, and can be estimated from
+# any SAM file produced by this framework or the reference.
+
+import dataclasses as _dc
+import json as _json
 
 
-@dataclasses.dataclass
+@_dc.dataclass
 class ErrorModel:
     """Context-conditioned error model. Context = previous base (4) and
     current base (4) -> 16 contexts."""
@@ -131,6 +167,15 @@ class ErrorModel:
     dele: list             # (16,) deletion rate per context
     mean_qual: float = 15.0
     ins_cognate: float = 0.0  # P(inserted base copies the previous base)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            _json.dump(_dc.asdict(self), f)
+
+    @staticmethod
+    def load(path: str) -> "ErrorModel":
+        with open(path) as f:
+            return ErrorModel(**_json.load(f))
 
     @staticmethod
     def default() -> "ErrorModel":
@@ -182,6 +227,72 @@ class ErrorModel:
             mean_qual=10.0,   # CLR-era raw base QV regime
             ins_cognate=0.6,
         )
+
+
+def build_model_from_sam(sam_path: str, bins: int = 8) -> ErrorModel:
+    """Estimate an ErrorModel from aligned reads (StoreQualityByContext
+    role): per-context rates from CIGAR op counts, length histogram from
+    read lengths."""
+    from blasr_tpu_torch.io.sam import read_sam
+
+    sam = read_sam(sam_path)
+    ctx_ops = np.zeros((16, 3), np.int64)  # sub-proxy, ins, del per context
+    ctx_m = np.zeros(16, np.int64)
+    lengths = []
+    quals = []
+    for rec in sam.records:
+        if rec.is_unmapped or rec.seq == "*":
+            continue
+        codes = seq_to_codes_safe(rec.seq)
+        lengths.append(len(codes))
+        if rec.qual is not None:
+            quals.append(float(np.mean(rec.qual)))
+        qpos = 0
+        prev = 0
+        nm = int(rec.tags.get("NM", 0))
+        n_m = 0
+        for op, ln in rec.cigar_runs():
+            if op in "SH":
+                qpos += ln if op == "S" else 0
+                continue
+            if op in "M=X":
+                for j in range(ln):
+                    c = int(codes[min(qpos + j, len(codes) - 1)])
+                    ctx = (prev << 2) | (c & 3)
+                    ctx_m[ctx] += 1
+                    prev = c & 3
+                n_m += ln
+                qpos += ln
+            elif op == "I":
+                c = int(codes[min(qpos, len(codes) - 1)])
+                ctx = (prev << 2) | (c & 3)
+                ctx_ops[ctx, 1] += ln
+                qpos += ln
+            elif op in "DN":
+                ctx = prev << 2
+                ctx_ops[ctx, 2] += ln
+        # spread NM mismatches uniformly over contexts weighted by matches
+        if n_m:
+            frac = ctx_m / max(ctx_m.sum(), 1)
+            ctx_ops[:, 0] += (nm * frac).astype(np.int64)
+    tot = np.maximum(ctx_m + ctx_ops.sum(axis=1), 1)
+    hist, edges = np.histogram(lengths, bins=bins)
+    mids = ((edges[:-1] + edges[1:]) / 2).astype(int).tolist()
+    probs = (hist / max(hist.sum(), 1)).tolist()
+    return ErrorModel(
+        lengths=mids,
+        length_probs=probs,
+        sub=(ctx_ops[:, 0] / tot).tolist(),
+        ins=(ctx_ops[:, 1] / tot).tolist(),
+        dele=(ctx_ops[:, 2] / tot).tolist(),
+        mean_qual=float(np.mean(quals)) if quals else 15.0,
+    )
+
+
+def seq_to_codes_safe(seq: str) -> np.ndarray:
+    from blasr_tpu_torch.core.encode import seq_to_codes
+
+    return seq_to_codes(seq.encode())
 
 
 def simulate_reads_alchemy(

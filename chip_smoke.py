@@ -133,7 +133,21 @@ Phases, each of which must pass:
      the JAX CLI's; each pass meant to run (adaptive_cd's re-map, the
      sensitive retry on the modes corpus; both expand levels and the
      sensitive retry in the CLI) re-maps at least one read, and what each
-     pass re-mapped and changed is printed.
+     pass re-mapped and changed is printed;
+ 16. the parallel paths (``check_parallel``) on phase 4's 256 FASTA
+     reads: (a) every batch split over [cuda:0, cuda:0] against the single
+     device, wire bytes equal, the split's own launches counted (K2 once
+     a slice of a batch); (b) the bench genome in PARALLEL_SHARDS
+     shards on cuda:0, broadcast and routed (concurrent), routed again in
+     two threads (devices cuda:0 and cuda, launches equal), then
+     ``ShardedServer`` on the two halves of the reads with max_resident
+     PARALLEL_MAX_RESIDENT, each run's lines held to the JAX package's
+     read by read (tools/jax_parallel_reference.json) with its wall,
+     launches and peak memory; (c) two host-part processes with RANK and
+     WORLD_SIZE set, merged, the file's sha256 the JAX package's; (d) the
+     CLI with -ndevices 0 and 8 (two processes at once), each file
+     byte-equal to phase 4's; (e) ``tools dotplot`` on 32 reads on the
+     card, its anchor lines the JAX dump's in canonical order.
 The line before the last is a JSON object with each kernel's launches
 (each on its own path: the single-quality DP and the gathers on config 2;
 K1, K2 and K3 also on config 4's timed run, ``launches_config4``,
@@ -142,7 +156,8 @@ phase 13's runs, ``launches_config5`` and ``launches_long``; on phase
 14's processes, ``launches_cli_host`` for K1 without quality, K2 and K3
 and ``launches_resume`` for K1 with single quality, K2 and K3; on each
 run of phase 15, ``launches_modes``, K1 without quality on the FASTA
-cells and with single quality on the FASTQ ones and the CLI's),
+cells and with single quality on the FASTQ ones and the CLI's; on each
+run of phase 16, ``launches_parallel``, K1 without quality, K2 and K3),
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and the exit code is not 0. Needs one CUDA card.
 """
@@ -231,6 +246,10 @@ MODES_CELLS = {"plain": ("fasta", {}), "adaptive": ("fasta", {"adaptive_cd": Tru
                "pvaltype3": ("fasta", {"pval_type": 3}),
                "clr_plain": ("modes", {}),
                "clr_retry": ("modes", {"sensitive_retry": True, "max_expand": 2})}
+PARALLEL_REFERENCE = os.path.join(HERE, "tools", "jax_parallel_reference.json")
+PARALLEL_READS = 256      # phase 16: phase 4's reads
+PARALLEL_SHARDS = 4
+PARALLEL_MAX_RESIDENT = 2
 RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0, "config3": 0,
                      "config2": 0, "config3_sam": 0, "config4": 0, "k15": 0, "k18": 0,
                      "config5": 0, "config5_sam": 0, "long": 0,
@@ -1025,11 +1044,12 @@ def load_references() -> dict:
     (tools/jax_fm_reference.py), -m 4 with seeds of k = 15 and 18
     (tools/jax_sa_reference.py), config 5's and the long reads' lines
     (tools/jax_piecewise_reference.py), phase 14's CLI files
-    (tools/jax_cli_reference.py) and phase 15's lines
-    (tools/jax_modes_reference.py), all written on the CPU."""
+    (tools/jax_cli_reference.py), phase 15's lines
+    (tools/jax_modes_reference.py) and phase 16's
+    (tools/jax_parallel_reference.py), all written on the CPU."""
     refs = {}
     for path in (M4_REFERENCE, M5_REFERENCE, SAM_REFERENCE, FM_REFERENCE, SA_REFERENCE,
-                 PIECEWISE_REFERENCE, CLI_REFERENCE, MODES_REFERENCE):
+                 PIECEWISE_REFERENCE, CLI_REFERENCE, MODES_REFERENCE, PARALLEL_REFERENCE):
         with open(path) as f:
             refs.update(json.load(f))
     return refs
@@ -2152,6 +2172,307 @@ def check_modes(genome_fa: str, reads, index, refs: dict, out_dir) -> dict:
             "launches": launches, "dp_launches": dp}
 
 
+HOST_PART_SCRIPT = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from blasr_tpu_torch import bench
+from blasr_tpu_torch.index.artifacts import GenomeIndex
+from blasr_tpu_torch.ops import launch_counts, reset_launch_counts
+from blasr_tpu_torch.parallel.multihost import init_distributed, run_mapping_host_part
+
+index_path, reads_path, prefix = sys.argv[1:4]
+rank, world = init_distributed()
+index = GenomeIndex.load(index_path)
+reads = bench.load_reads(reads_path)
+reset_launch_counts()
+recs, unmapped = run_mapping_host_part(index, reads, bench.bench_params(), prefix, rank, world,
+                                       device="cuda")
+torch.cuda.synchronize()
+counts = launch_counts()
+dist.barrier()
+dist.destroy_process_group()
+print(json.dumps({"rank": rank, "world": world, "records": len(recs),
+                  "unmapped": len(unmapped), "launches": counts}))
+"""
+
+
+def sharded_cell(name: str, ref: dict, mapping, reads) -> dict:
+    """One timed sharded run (``mapping()`` -> records, unmapped) with the
+    launch counters reset just before it and the peak memory counter too;
+    its -m 4 lines held to the JAX package's read by read (0 may differ)."""
+    import torch
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from blasr_tpu_torch.output.m4 import format_m4
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    recs, unmapped = mapping()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts, peak = launch_counts(), torch.cuda.max_memory_allocated()
+    got = m4_digests((r.qname, format_m4(r)) for r in recs)
+    diff = {n for n in set(got) | set(ref["digests"]) if got.get(n) != ref["digests"].get(n)}
+    diff |= set(unmapped) ^ set(ref["unmapped"])
+    acc = bench.accuracy_true_locus(recs, reads)
+    log(f"  {name}: {len(reads)} reads in {wall:.2f} s ({len(reads) / wall:.1f} reads/s), "
+        f"records {len(recs)}, accuracy {acc:.4f}; {len(diff)} reads differ from the JAX "
+        f"package's; launches {counts}; peak {peak / 2**30:.2f} GiB")
+    if diff:
+        raise AssertionError(f"{name}: {len(diff)} reads differ from the JAX package's; first "
+                             f"{sorted(diff)[:5]}")
+    return {"reads": len(reads), "records": len(recs), "wall_s": wall,
+            "reads_per_s": len(reads) / wall, "accuracy_true_locus": acc,
+            "reads_differing": len(diff), "launches": counts, "peak_bytes": peak}
+
+
+def check_parallel(genome_fa: str, reads, index, refs: dict, cli: dict, out_dir) -> dict:
+    """Phase 16, the parallel paths on the card, on phase 4's 256 FASTA
+    reads at the bench operating point. (a) Every batch split over
+    [cuda:0, cuda:0] (``Mapper(devices=...)``: two slices, one slope
+    median over the batch) against the single device, wire bytes equal;
+    the counters are zeroed just before the split's run and read just
+    after it, before the single device's, and K2 must have run once per
+    slice of each batch. (b) The bench genome in PARALLEL_SHARDS shards
+    on cuda:0 (shard indexes built once and resident; their caches and
+    the routing sketches written beside the genome): broadcast, routed
+    (both concurrent, one thread for the one card), routed in two threads
+    (the device list cuda:0 and cuda, two keys for the one card; its
+    launches equal the one thread's), then ``ShardedServer`` (routed,
+    max_resident
+    PARALLEL_MAX_RESIDENT) on the first and the last 128 reads, each held
+    to the JAX package's lines read by read
+    (tools/jax_parallel_reference.json, 0 may differ), with its wall,
+    launches and peak memory; at most PARALLEL_MAX_RESIDENT shards keep a
+    device index after a server call. (c) Two host-part processes with
+    RANK/WORLD_SIZE set (``init_distributed`` joins a gloo group), merged:
+    the file's sha256 is the JAX package's. (d) The CLI with -ndevices 0
+    and -ndevices 8 (two processes at once; one card: the plain path), each
+    file byte-equal to phase 4's. (e) ``tools dotplot`` on 32 reads with
+    -device cuda: its anchor lines the JAX dump's in canonical order."""
+    import torch
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.cli import tools
+    from blasr_tpu_torch.index.artifacts import INDEX_SUFFIX
+    from blasr_tpu_torch.io.batching import batch_reads
+    from blasr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from blasr_tpu_torch.parallel import sharded
+    from blasr_tpu_torch.pipeline.mapper import Mapper, make_device_index
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    ref = refs["parallel"]
+    params = bench.bench_params()
+    sub = reads[:PARALLEL_READS]
+    reads_fa = cli["path"]
+    with open(bench.READS_FA, "rb") as f:
+        md5 = hashlib.md5(f.read()).hexdigest()
+    if md5 != ref["sharded_broadcast"]["reads_md5"]:
+        raise AssertionError(f"reads md5 {md5} != the parallel reference's")
+    # the k = 14 index where the processes below look for it (phase 15's
+    # CLI left a k = 12 cache)
+    index.save(genome_fa + INDEX_SUFFIX)
+    out = {}
+
+    # (a) the split batch: its own launches counted (the counters zeroed
+    # just before it), then the single device's run for the reference
+    t0 = time.time()
+    two = Mapper(index, params, device="cuda", devices=["cuda:0", "cuda:0"])
+    batches = list(batch_reads(sub, params.batch_size, params.max_read_len))
+    reset_launch_counts()
+    split = [two.map_batch(b.codes, b.lengths, b.qual).wire.cpu().numpy() for b in batches]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    one = Mapper(index, params, device="cuda")
+    n_batches = len(batches)
+    equal = sum(int(one.map_batch(b.codes, b.lengths, b.qual).wire.cpu().numpy().tobytes()
+                    == w.tobytes()) for b, w in zip(batches, split))
+    log(f"phase 16 (a): {n_batches} batches split over [cuda:0, cuda:0]: {equal} wires "
+        f"byte-equal to the single device's; the split's launches {counts}; "
+        f"{time.time() - t0:.1f} s")
+    if equal != n_batches:
+        raise AssertionError(f"split-batch wires differ from the single device's: "
+                             f"{n_batches - equal} of {n_batches}")
+    # each slice of each batch gathers its genome windows once
+    if counts["gather_spans"] != 2 * n_batches or min(counts.values()) <= 0:
+        raise AssertionError(f"the split batch's launches {counts}: want gather_spans "
+                             f"{2 * n_batches} (2 slices x {n_batches} batches) and every "
+                             f"kernel launched")
+    out["split"] = {"batches": n_batches, "equal": equal, "launches": counts,
+                    "seconds": time.time() - t0}
+
+    # (b) the sharded index on one card
+    # the shard caches and routing sketches go beside the genome, where the
+    # routed runs and the server below load them
+    overlap = params.max_read_len + params.target_pad
+    specs = sharded.make_shards(index.genome_length, PARALLEL_SHARDS, overlap)
+    t0 = time.time()
+    shards = sharded.build_or_load_shards(index.genome, index.seqdb, specs, index.k,
+                                          genome_fa, overlap)
+    build_s = time.time() - t0
+    t0 = time.time()
+    sketches = sharded.load_or_build_sketches(index.genome, specs, genome_fa, overlap)
+    routes = sharded.route_reads(sub, sketches)
+    sketch_s = time.time() - t0
+    visits = sum(len(rt) for rt in routes)
+    log(f"phase 16 (b): {PARALLEL_SHARDS} shards built and cached in {build_s:.1f} s, "
+        f"sketches and routes {sketch_s:.1f} s; routed shard visits {visits} for {len(sub)} "
+        f"reads ({visits / len(sub):.2f} a read; JAX {ref['sharded_routed']['shard_visits']})")
+    if visits != ref["sharded_routed"]["shard_visits"]:
+        raise AssertionError("routed shard visits differ from the JAX package's")
+    kw = dict(n_shards=PARALLEL_SHARDS, k=index.k, devices=["cuda:0"], shard_indexes=shards,
+              genome_path=genome_fa)
+    t0 = time.time()
+    for s in shards:
+        make_device_index(s, params, "cuda")
+    torch.cuda.synchronize()
+    tables_s = time.time() - t0
+
+    def sharded_run(reads_, **extra):
+        return lambda: sharded.run_mapping_sharded(
+            index.genome, index.seqdb, reads_, params, **{**kw, **extra})
+
+    cells = {"build_s": build_s, "sketch_s": sketch_s, "shard_visits": visits,
+             "tables_s": tables_s}
+    # the plain cell on the same reads (the main index resident), against
+    # which the sharded walls are read
+    t0 = time.time()
+    run_mapping(index, sub, params, device="cuda")
+    torch.cuda.synchronize()
+    cells["plain_s"] = time.time() - t0
+    log(f"  the shards' device tables built in {tables_s:.1f} s; the plain cell on the same "
+        f"reads {cells['plain_s']:.2f} s")
+    # concurrent (the default): one thread for the one card, its shards in turn
+    cells["broadcast"] = sharded_cell("broadcast", ref["sharded_broadcast"],
+                                      sharded_run(sub), sub)
+    cells["routed"] = sharded_cell("routed", ref["sharded_routed"],
+                                   sharded_run(sub, route=True), sub)
+    # the threaded branch on the card: "cuda:0" and "cuda" name the one card
+    # as two devices, so two threads map two shards each
+    cells["routed_threads"] = sharded_cell(
+        "routed, two threads (cuda:0 and cuda)", ref["sharded_routed"],
+        sharded_run(sub, route=True, devices=["cuda:0", "cuda"]), sub)
+    if cells["routed_threads"]["launches"] != cells["routed"]["launches"]:
+        raise AssertionError(f"two threads launched {cells['routed_threads']['launches']}, "
+                             f"one thread {cells['routed']['launches']}")
+    for cell in ("broadcast", "routed", "routed_threads"):
+        cells[cell]["wall_vs_plain"] = cells[cell]["wall_s"] / cells["plain_s"]
+    log(f"  against the plain cell: broadcast {cells['broadcast']['wall_vs_plain']:.2f}x, "
+        f"routed {cells['routed']['wall_vs_plain']:.2f}x, two threads "
+        f"{cells['routed_threads']['wall_vs_plain']:.2f}x")
+    for s in shards:
+        s.__dict__.pop("_torch_device_index_cache", None)
+    t0 = time.time()
+    srv = sharded.ShardedServer(index.genome, index.seqdb, params, PARALLEL_SHARDS,
+                                k=index.k, genome_path=genome_fa, devices=["cuda:0"],
+                                max_resident=PARALLEL_MAX_RESIDENT)
+    cells["server_build_s"] = time.time() - t0
+    half = PARALLEL_READS // 2
+    for i, part in ((1, sub[:half]), (2, sub[half:])):
+        cells[f"server_{i}"] = sharded_cell(f"ShardedServer.map call {i}", ref[f"server_{i}"],
+                                            lambda part=part: srv.map(part), part)
+        resident = [j for j, ix in enumerate(srv.indexes)
+                    if "_torch_device_index_cache" in ix.__dict__]
+        cells[f"server_{i}"]["resident"] = resident
+        log(f"    shards with a device index after the call: {resident}")
+        if len(resident) > PARALLEL_MAX_RESIDENT:
+            raise AssertionError(f"ShardedServer kept {resident} resident")
+    del srv, shards
+    out["sharded"] = cells
+
+    # (c) two host parts in their own processes, merged
+    idx_path = os.path.join(bench.BENCH_DIR, "parallel_k14.btidx.npz")
+    index.save(idx_path, compress=False)
+    prefix = os.path.join(bench.BENCH_DIR, "parallel_parts")
+    port = free_port()
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", HOST_PART_SCRIPT, idx_path, reads_fa, prefix], cwd=HERE,
+        env={**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+             "RANK": str(r), "WORLD_SIZE": "2"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    results = []
+    for pr in procs:
+        o, e = pr.communicate(timeout=600)
+        if pr.returncode != 0:
+            for q in procs:
+                q.kill()
+            raise AssertionError(f"host part failed ({pr.returncode}): {e[-2000:]}")
+        results.append(json.loads(o.strip().splitlines()[-1]))
+    merged = os.path.join(bench.BENCH_DIR, "parallel_merged.m4")
+    from blasr_tpu_torch.parallel.multihost import merge_host_parts
+
+    n = merge_host_parts(prefix, merged, 2)
+    with open(merged, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    parts_s = time.time() - t0
+    part_launches = {k: sum(r["launches"][k] for r in results) for k in results[0]["launches"]}
+    log(f"phase 16 (c): 2 host-part processes (ranks {[r['rank'] for r in results]} of "
+        f"{results[0]['world']}), records {[r['records'] for r in results]}, merged {n} lines "
+        f"in {parts_s:.1f} s (processes included); sha256 "
+        f"{'equal to' if sha == ref['host_parts']['sha256'] else 'DIFFERS from'} the JAX "
+        f"package's; launches {part_launches}")
+    if sha != ref["host_parts"]["sha256"] or n != ref["host_parts"]["records"]:
+        raise AssertionError("merged host parts differ from the JAX package's")
+    out["host_parts"] = {"records": n, "seconds": parts_s, "launches": part_launches,
+                         "ranks": results}
+
+    # (d) the CLI with -ndevices 0 and 8, both at once
+    t0 = time.time()
+    procs = {}
+    for nd in ("0", "8"):
+        path = os.path.join(bench.BENCH_DIR, f"reads_cli_nd{nd}.m4")
+        procs[nd] = (path, subprocess.Popen(
+            [sys.executable, "-m", "blasr_tpu_torch.cli.blasr", reads_fa, genome_fa,
+             *CLI_FLAGS, "-ndevices", nd, "-out", path, "-metrics", path + ".json"],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    want = "".join(ln + "\n" for ln in cli["m4"])
+    cli_launches = {}
+    for nd, (path, pr) in procs.items():
+        _, e = pr.communicate(timeout=600)
+        if pr.returncode != 0:
+            raise AssertionError(f"CLI -ndevices {nd} failed ({pr.returncode}): {e[-2000:]}")
+        with open(path) as f:
+            if f.read() != want:
+                raise AssertionError(f"CLI -ndevices {nd} wrote other bytes than phase 4's CLI")
+        with open(path + ".json") as f:
+            cli_launches[nd] = json.load(f)["kernelLaunches"]
+    log(f"phase 16 (d): CLI -ndevices 0 and 8 (two processes at once) byte-equal to the "
+        f"default file, {len(cli['m4'])} lines, {time.time() - t0:.1f} s; launches {cli_launches}")
+    out["cli"] = {"seconds": time.time() - t0, "launches": cli_launches}
+
+    # (e) tools dotplot on the card
+    t0 = time.time()
+    dots_fa = os.path.join(bench.BENCH_DIR, "reads_dotplot.fasta")
+    bench.write_reads(dots_fa, sub[:32])
+    dots = os.path.join(out_dir or bench.BENCH_DIR, "dotplot.txt")
+    if tools.main(["dotplot", dots_fa, genome_fa, "-minMatch", "14", "-device", "cuda",
+                   "-out", dots]) != 0:
+        raise AssertionError("tools dotplot failed")
+    with open(dots) as f:
+        lines = f.read().splitlines()
+    sha = hashlib.sha256("\n".join(lines[1:]).encode()).hexdigest()
+    log(f"phase 16 (e): tools dotplot on 32 reads: {len(lines) - 1} anchor lines (JAX "
+        f"{ref['dotplot']['lines']}), sha256 "
+        f"{'equal' if sha == ref['dotplot']['sha256'] else 'DIFFERS'}; {time.time() - t0:.1f} s")
+    if sha != ref["dotplot"]["sha256"]:
+        raise AssertionError("tools dotplot's anchors differ from the JAX dump's")
+    out["dotplot"] = {"lines": len(lines) - 1, "seconds": time.time() - t0}
+    return out
+
+
+def free_port() -> int:
+    """A free TCP port on this machine for the host parts' process group."""
+    import socket
+
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        return so.getsockname()[1]
+
+
 def run(out_path: str | None) -> int:
     import torch
 
@@ -2316,6 +2637,13 @@ def run(out_path: str | None) -> int:
     phase15_s = time.time() - t_start - phase_times["15"]
     log(f"phase 15: {phase15_s:.1f} s")
 
+    # ---- phase 16: the parallel paths: a split batch, the sharded index,
+    # host parts, -ndevices, tools dotplot ----
+    mark("16")
+    parallel = check_parallel(genome_fa, reads, index, refs, cli, out_dir)
+    phase16_s = time.time() - t_start - phase_times["16"]
+    log(f"phase 16: {phase16_s:.1f} s")
+
     # ---- the kernels line ----
     def dp_row(mode):
         return next(r for r in dp_rows if (r["W"], r["L"], r["mode"]) == (*MAIN_DP_SHAPE, mode))
@@ -2336,6 +2664,17 @@ def run(out_path: str | None) -> int:
                 for cell, dp in modes["dp_launches"].items()
                 if any(k.endswith("/" + mode) for k in dp)}
 
+    # each kernel's launches on each run of phase 16 (FASTA reads: K1
+    # without quality)
+    sh = parallel["sharded"]
+
+    def parallel_launches(name):
+        return {"split": parallel["split"]["launches"][name],
+                **{cell: sh[cell]["launches"][name] for cell in (
+                    "broadcast", "routed", "routed_threads", "server_1", "server_2")},
+                "host_parts": parallel["host_parts"]["launches"][name],
+                **{f"cli_nd{nd}": n[name] for nd, n in parallel["cli"]["launches"].items()}}
+
     kernels = []
     for mode in QUAL_MODES:
         row = dp_row(mode)
@@ -2354,6 +2693,7 @@ def run(out_path: str | None) -> int:
             **({"launches_resume": resume["launches"]["banded_dp"]} if mode == "single" else {}),
             **({"launches_modes": modes_launches("banded_dp", mode)}
                if mode in ("none", "single") else {}),
+            **({"launches_parallel": parallel_launches("banded_dp")} if mode == "none" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in dp_rows if r["mode"] == mode),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
@@ -2372,6 +2712,7 @@ def run(out_path: str | None) -> int:
             "launches_cli_host": cli_host["launches"][name],
             "launches_resume": resume["launches"][name],
             "launches_modes": modes_launches(name),
+            "launches_parallel": parallel_launches(name),
             "max_abs_err": max(r["max_abs_err"] for r in g_rows[name]),
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2403,6 +2744,7 @@ def run(out_path: str | None) -> int:
     if any(k["launches"] <= 0 or min(k.get(f"launches_{c}", 1) for c in (
             "config4", "k15", "k18", "config5", "long", "cli_host", "resume")) <= 0
            or min(k.get("launches_modes", {"-": 1}).values()) <= 0
+           or min(k.get("launches_parallel", {"-": 1}).values()) <= 0
            for k in kernels):
         raise AssertionError(f"a kernel never ran on its path: {kernels}")
     fastq_runs = {"modes_cli", *(c for c, (corpus, _) in MODES_CELLS.items()
@@ -2424,7 +2766,8 @@ def run(out_path: str | None) -> int:
                 "matrix": matrix, "config3": config3, "config2": config2, "config4": config4,
                 "sa_seeds": sa_seeds, "piecewise": piecewise, "cli_host": cli_host,
                 "resume": resume, "phase14_s": phase14_s, "modes": modes,
-                "phase15_s": phase15_s, "phase_start_s": phase_times,
+                "phase15_s": phase15_s, "parallel": parallel, "phase16_s": phase16_s,
+                "phase_start_s": phase_times,
                 "jax_clr_accuracy_cpu": JAX_CLR_ACCURACY,
                 "jax_guided_accuracy_cpu": JAX_GUIDED_ACCURACY,
                 "seconds": time.time() - t_start,

@@ -168,7 +168,6 @@ def test_compat_flag_changes_no_parameter(argv):
     p = tcli.build_parser()
     base = p.parse_args(["r.fa", "g.fa"])
     args = p.parse_args(["r.fa", "g.fa", *argv])
-    assert tcli.unsupported_options(args) == []
     assert tcli.params_from_args(args) == tcli.params_from_args(base)
 
 
@@ -188,25 +187,22 @@ def test_compat_flags_change_no_line(corpus, capsys):
 
 
 def test_only_the_modes_not_ported_are_refused():
-    """Only -ndevices other than 1 is refused; the optional mapping modes
-    parse to their parameters (tests/test_torch_modes_*.py map them)."""
+    """No mode is refused now that the port has them all: -ndevices and the
+    optional mapping modes parse to their parameters
+    (tests/test_torch_parallel.py and tests/test_torch_modes_*.py map
+    them)."""
     p = tcli.build_parser()
-    refused = {"-ndevices 2": ["-ndevices", "2"], "-ndevices 0": ["-ndevices", "0"]}
-    for name, argv in refused.items():
-        assert tcli.unsupported_options(p.parse_args(["r.fa", "g.fa", *argv])) == [name]
-    accepted = {("-useSensitiveSearch",): dict(sensitive_retry=True, min_match_length=12,
+    assert not hasattr(tcli, "unsupported_options")
+    accepted = {("-ndevices", "2"): dict(ndevices=2), ("-ndevices", "0"): dict(ndevices=0),("-useSensitiveSearch",): dict(sensitive_retry=True, min_match_length=12,
                                                n_candidates=10),
                 ("-maxExpand", "2"): dict(max_expand=2),
                 ("-placeRepeatsRandomly",): dict(place_repeats_randomly=True),
                 ("-pvaltype", "2"): dict(pval_type=2), ("-pvaltype", "3"): dict(pval_type=3)}
     for argv, fields in accepted.items():
-        args = p.parse_args(["r.fa", "g.fa", *argv])
-        assert tcli.unsupported_options(args) == []
-        params = tcli.params_from_args(args)
+        params = tcli.params_from_args(p.parse_args(["r.fa", "g.fa", *argv]))
         assert {f: getattr(params, f) for f in fields} == fields
     # -minExpand above -maxExpand raises max_expand with it: no retry pass
     args = p.parse_args(["r.fa", "g.fa", "-minExpand", "2", "-sdpTupleSize", "9"])
-    assert tcli.unsupported_options(args) == []
     params = tcli.params_from_args(args)
     assert (params.min_expand, params.max_expand, params.sdp_tuple_size) == (2, 2, 9)
 

@@ -751,3 +751,86 @@ def test_modes_on_the_card_equal_cpu(dev, mode):
     gpu = run_mapping(index, reads, params, device="cuda")
     assert [format_m4(r) for r in gpu[0]] == [format_m4(r) for r in cpu[0]]
     assert gpu[1] == cpu[1] and cpu[0]
+
+
+def _parallel_case():
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+    from blasr_tpu_torch.io.batching import Read
+    from blasr_tpu_torch.io.seqdb import SeqDB
+
+    rng = np.random.default_rng(23)
+    G = 120_000
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    seqdb = SeqDB(["a", "b"], np.array([0, 70_000, G]), ["0" * 32] * 2)
+    reads = []
+    for i in range(16):
+        s = int(rng.integers(0, G - 1000))
+        r = genome[s : s + int(rng.integers(300, 900))].copy()
+        at = np.arange(0, len(r), 15)
+        r = np.delete(r, at) if i % 2 else np.insert(r, at, rng.integers(0, 4, len(at)).astype(np.uint8))
+        reads.append(Read(f"r{i}", r, None, i))
+    params = bench.bench_params(batch_size=8, max_read_len=1024, min_match_length=11)
+    return genome, seqdb, build_index_from_arrays(genome, seqdb, k=11), reads, params
+
+
+def test_split_batch_on_the_card_equals_cpu(dev):
+    """A batch split over [cuda:0, cuda:0] (one slope median over both
+    slices): the CPU's one-device wire, and run_mapping's lines."""
+    from blasr_tpu_torch.io.batching import batch_reads
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.pipeline.mapper import Mapper
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    _, _, index, reads, params = _parallel_case()
+    cpu_m = Mapper(index, params, device="cpu")
+    split_m = Mapper(index, params, device="cuda", devices=["cuda:0", "cuda:0"])
+    for b in batch_reads(reads, params.batch_size, params.max_read_len):
+        assert torch.equal(split_m.map_batch(b.codes, b.lengths).wire.cpu(),
+                           cpu_m.map_batch(b.codes, b.lengths).wire)
+    cpu = run_mapping(index, reads, params, device="cpu")
+    gpu = run_mapping(index, reads, params, device="cuda", devices=["cuda:0"] * 4)
+    assert [format_m4(r) for r in gpu[0]] == [format_m4(r) for r in cpu[0]] and cpu[0]
+
+
+@pytest.mark.parametrize("route", [False, True])
+def test_sharded_mapping_on_the_card_equals_cpu(dev, route):
+    """Three shards on cuda:0 (repeated in the device list) against the
+    same shards on the CPU; the ShardedServer's calls too."""
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.parallel import sharded
+
+    genome, seqdb, _, reads, params = _parallel_case()
+    kw = dict(n_shards=3, k=11, route=route)
+    cpu = sharded.run_mapping_sharded(genome, seqdb, reads, params, devices=["cpu"], **kw)
+    gpu = sharded.run_mapping_sharded(genome, seqdb, reads, params,
+                                      devices=["cuda:0", "cuda:0"], **kw)
+    assert [format_m4(r) for r in gpu[0]] == [format_m4(r) for r in cpu[0]] and cpu[0]
+    assert gpu[1] == cpu[1]
+    srv = sharded.ShardedServer(genome, seqdb, params, 3, k=11, devices=["cuda:0"],
+                                route=route, max_resident=1)
+    got = srv.map(reads)
+    assert [format_m4(r) for r in got[0]] == [format_m4(r) for r in cpu[0]]
+    assert sum("_torch_device_index_cache" in ix.__dict__ for ix in srv.indexes) <= 1
+
+
+def test_sharded_threads_on_the_card_equal_serial(dev):
+    """Four shards over the device list [cuda:0, cuda]: two names of the
+    one card, so two threads map two shards each and launch K1, K2 and K3
+    at once. Records and launch counts equal the serial run's."""
+    from blasr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.parallel import sharded
+
+    genome, seqdb, _, reads, params = _parallel_case()
+    kw = dict(n_shards=4, k=11)
+    runs = {}
+    for name, extra in (("serial", dict(devices=["cuda:0"], concurrent=False)),
+                        ("threads", dict(devices=["cuda:0", "cuda"]))):
+        reset_launch_counts()
+        recs, unmapped = sharded.run_mapping_sharded(genome, seqdb, reads, params,
+                                                     **kw, **extra)
+        torch.cuda.synchronize()
+        runs[name] = ([format_m4(r) for r in recs], unmapped, launch_counts())
+    assert runs["threads"] == runs["serial"] and runs["serial"][0]
+    assert min(runs["serial"][2].values()) > 0

@@ -100,6 +100,63 @@ def test_port_maps_with_jax_blocked():
         ln.split()[2] for ln in out["fastq"]["lines"]]
 
 
+PARALLEL_SCRIPT = BLOCK + r"""
+import io, json, os, sys, tempfile
+import numpy as np
+from blasr_tpu_torch.cli import tools
+from blasr_tpu_torch.io.fasta import write_fasta
+from blasr_tpu_torch.io.seqdb import SeqDB
+from blasr_tpu_torch.output.m4 import format_m4
+from blasr_tpu_torch.parallel.multihost import merge_host_parts, run_mapping_host_part
+from blasr_tpu_torch.parallel.sharded import run_mapping_sharded
+from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+from blasr_tpu_torch import bench
+from blasr_tpu_torch.sim import simulate_genome, simulate_reads
+
+d = tempfile.mkdtemp()
+g = simulate_genome(40_000, seed=5, repeat_fraction=0.0)
+seqdb = SeqDB(["ref"], np.array([0, len(g)]), ["0" * 32])
+reads, _ = simulate_reads(g, 6, mean_len=400, seed=6)
+params = bench.bench_params(batch_size=4, max_read_len=768, min_match_length=11)
+out = {}
+recs, unm = run_mapping_sharded(g, seqdb, reads, params, n_shards=2, k=11, devices=["cpu"],
+                                route=True)
+out["sharded"] = [format_m4(r) for r in recs]
+out["accuracy"] = bench.accuracy_true_locus(recs, reads)
+index = build_index_from_arrays(g, seqdb, k=11)
+for pid in range(2):
+    run_mapping_host_part(index, reads, params, os.path.join(d, "p"), pid, 2, device="cpu")
+out["merged_n"] = merge_host_parts(os.path.join(d, "p"), os.path.join(d, "m.m4"), 2)
+out["merged"] = open(os.path.join(d, "m.m4")).read().splitlines()
+write_fasta(os.path.join(d, "g.fa"), [("ref", g)])
+buf = io.StringIO()
+sys.stdout, stdout = buf, sys.stdout
+assert tools.main(["countnmers", os.path.join(d, "g.fa"), "-wordsize", "10"]) == 0
+sys.stdout = stdout
+out["countnmers"] = buf.getvalue().split()
+out["loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "blasr_tpu")
+                       and sys.modules[m] is not None)
+print(json.dumps(out))
+"""
+
+
+def test_sharded_host_parts_and_tools_with_jax_blocked():
+    """run_mapping_sharded (routed, two shards), two host parts and their
+    merge, and ``tools countnmers``, with jax and blasr_tpu blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", PARALLEL_SCRIPT], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert len(out["sharded"]) == 6 and out["accuracy"] == 1.0
+    assert out["merged_n"] == 6 and len(out["merged"]) == 6
+    assert [ln.split()[:1] + ln.split()[5:12] for ln in out["merged"]] == [
+        ln.split()[:1] + ln.split()[5:12] for ln in out["sharded"]]
+    assert int(out["countnmers"][1]) == 40_000 - 10 + 1
+
+
 CLI_SCRIPT = BLOCK + r"""
 from blasr_tpu_torch.cli.blasr import main
 argv = sys.argv[1:]
@@ -176,8 +233,9 @@ def cli_outputs(tmp_path_factory):
     side = " ".join(f"-{kind} {tmp_path / ('selected.' + kind)}" for kind in SIDE_FILES)
     runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / 'selected.m4'},-start 1 -stride 2 "
                 f"-nproc 16 {side}")
-    # the optional mapping modes, once refused by name
-    for run, flags in MODE_RUNS.items():
+    # the optional mapping modes, once refused by name, and -ndevices 2 (one
+    # device visible on the CPU: the plain path)
+    for run, flags in {**MODE_RUNS, "ndevices": "-ndevices 2"}.items():
         runs.append(f"{tmp_path / 'r.fasta'},{tmp_path / f'{run}.m4'},{flags}")
     proc = subprocess.run(
         [sys.executable, "-c", CLI_SCRIPT, str(tmp_path / "g.fa"),
@@ -197,7 +255,7 @@ def cli_outputs(tmp_path_factory):
             **{run: (tmp_path / f"{run}.m4").read_text().splitlines()
                for run in (*CLI_FORMATS, "guided_matrix", "bestn2_m5", "sam_hard", "sam_soft",
                            "bwt_built", "bwt_loaded", "sa_k18", "nucmer", "contigs", "long",
-                           "resume", "selected", *MODE_RUNS)}}
+                           "resume", "selected", *MODE_RUNS, "ndevices")}}
 
 
 def test_cli_writes_m4_with_jax_blocked(cli_outputs):
@@ -305,14 +363,12 @@ def _check_cli_lines(lines):
 
 
 def test_cli_names_unsupported_options(cli_outputs):
-    """-ndevices other than 1 is refused by name; -useSensitiveSearch,
+    """No option is refused any more: -ndevices 2 writes the plain run's
+    lines (one device is visible on the CPU); -useSensitiveSearch,
     -placeRepeatsRandomly, -maxExpand 2 and -pvaltype 2 map every read
     with jax blocked, on the spans the plain run reports (these clean reads
     give the passes nothing to change)."""
-    from blasr_tpu_torch.cli.blasr import main
-
-    with pytest.raises(SystemExit, match="-ndevices 2"):
-        main(["r.fa", "g.fa", "-ndevices", "2"])
+    assert cli_outputs["ndevices"] == cli_outputs["fasta"]
     spans = [ln.split()[5:12] for ln in cli_outputs["fasta"][1:]]
     for run in MODE_RUNS:
         _check_cli_lines(cli_outputs[run])
@@ -321,10 +377,15 @@ def test_cli_names_unsupported_options(cli_outputs):
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "tools", n) for n in os.listdir(os.path.join(REPO, "tools"))
+              if n.startswith("torch_") and n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "blasr_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    for module in ("pipeline/debug.py", "pipeline/diagnostics.py", "cli/blasr.py"):
+    for module in ("pipeline/debug.py", "pipeline/diagnostics.py", "cli/blasr.py",
+                   "parallel/mesh.py", "parallel/sharded.py", "parallel/multihost.py",
+                   "cli/tools.py", "cli/sawriter.py", "cli/bwtutils.py"):
         assert os.path.join(REPO, "blasr_tpu_torch", module) in files
+    assert os.path.join(REPO, "tools", "torch_sharded_smoke.py") in files
     return files
 
 
