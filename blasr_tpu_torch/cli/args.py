@@ -122,7 +122,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="resume an interrupted run: append to -out, batch-"
                         "granular checkpoint manifest at <out>.resume.json")
     p.add_argument("-metrics", default=None, metavar="FILE",
-                   help="write per-stage timing/counter metrics JSON")
+                   help="write per-stage timing/counter metrics JSON, the run traced: "
+                        "'spans' (per span name: count, seconds, self seconds, most "
+                        "device memory at its end) and 'counters' (host waits for the "
+                        "device by site, the largest DP arrow tensor, bytes copied each "
+                        "way, compiler runs, index builds and cache reads)")
     p.add_argument("-V", "-v", dest="verbosity", type=int, default=0, nargs="?",
                    const=1)
     p.add_argument("-version", action="version", version="blasr-tpu 2.0")

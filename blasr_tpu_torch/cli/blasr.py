@@ -248,7 +248,7 @@ def write_diagnostics(args, params, index, reads, records, unmapped, metrics, fm
                 write_lcp_bounds(f, reads, index)
 
 
-def run_resumable(args, params, index, reads, fm, metrics):
+def run_resumable(args, params, index, reads, fm, metrics, clock=None):
     """``-resume``: the run checkpointed batch by batch, as the JAX CLI's
     ``_run_resumable`` (blasr_tpu/cli/blasr.py:378-499) does: each
     batch's records (-m 4 lines, or SAM) are appended to ``-out`` as it
@@ -382,7 +382,7 @@ def run_resumable(args, params, index, reads, fm, metrics):
     run_params = dataclasses.replace(params, dispatch_ahead=min(params.dispatch_ahead, 1))
     try:
         records, unmapped = run_mapping(
-            index, reads, run_params, device=args.device, metrics=metrics, fm=fm,
+            index, reads, run_params, device=args.device, metrics=metrics, clock=clock, fm=fm,
             on_batch=on_batch, skip_batches=state["batches_done"], carried=carried,
         )
         if state["deferred"]:
@@ -415,9 +415,10 @@ def main(argv=None) -> int:
     from blasr_tpu_torch.core.encode import codes_to_seq
     from blasr_tpu_torch.index.artifacts import build_index_from_sa, load_index
     from blasr_tpu_torch.io.batching import read_records
-    from blasr_tpu_torch.ops import dp_launch_counts, launch_counts
+    from blasr_tpu_torch.ops import _build, counters, dp_launch_counts, launch_counts
     from blasr_tpu_torch.pipeline.piecewise import run_mapping_piecewise
     from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
+    from blasr_tpu_torch.pipeline.trace import StageClock
 
     t_start = time.time()
     fm = None
@@ -439,13 +440,16 @@ def main(argv=None) -> int:
         # refers to contigs by their table index; the table file maps back
         index.seqdb.names = [str(i) for i in range(len(index.seqdb.names))]
     met = MappingMetrics()
+    # -metrics traces the run: spans and counters, never a synchronisation
+    clock = StageClock(args.device, sync=False) if args.metrics else None
     t0 = time.time()
     if resumable:
-        records, unmapped = run_resumable(args, params, index, reads, fm, met)
+        records, unmapped = run_resumable(args, params, index, reads, fm, met, clock)
         t_map = time.time() - t0
     else:
         run = run_mapping_piecewise if params.piecewise else run_mapping
-        records, unmapped = run(index, reads, params, device=args.device, metrics=met, fm=fm)
+        records, unmapped = run(index, reads, params, device=args.device, metrics=met,
+                                clock=clock, fm=fm)
         t_map = time.time() - t0
         write_output(args, params, index, reads, records, unmapped)
     if args.unaligned:
@@ -473,6 +477,11 @@ def main(argv=None) -> int:
                 "stages": met.to_dict(),
                 "kernelLaunches": launch_counts(),
                 "dpLaunches": dp_launch_counts(),
+                "spans": clock.summary(),
+                "counters": {**counters(), **clock.counters,
+                             "compiler_runs": _build.COMPILER_RUNS,
+                             "index_builds": load_index.builds,
+                             "index_cache_reads": load_index.cache_reads},
             }, f, indent=2)
     print(f"Finished mapping {len(reads) - len(unmapped)}/{len(reads)} reads",
           file=sys.stderr)

@@ -166,13 +166,16 @@ def load_index(genome_path: str, k: int = 14, cache: bool = True) -> GenomeIndex
     ``build_index_from_sa`` (the CLI's ``-sa``); ``.bwt`` and FM bundles
     through the CLI's ``-bwt``, which builds a genome-only index with an
     empty ``sa`` and ``sa_kmers``. The cache file is the JAX package's
-    format.
+    format. ``load_index.builds`` and ``load_index.cache_reads`` count
+    the indexes this process built and those it read from a cache.
     """
     idx_path = genome_path + INDEX_SUFFIX
     if cache and os.path.exists(idx_path) and os.path.getmtime(idx_path) >= os.path.getmtime(genome_path):
         idx = GenomeIndex.load(idx_path)
         if idx.k == k:
+            load_index.cache_reads += 1
             return idx
+    load_index.builds += 1
     idx = build_index(genome_path, k=k)
     if cache:
         try:
@@ -180,6 +183,10 @@ def load_index(genome_path: str, k: int = 14, cache: bool = True) -> GenomeIndex
         except OSError:
             pass
     return idx
+
+
+load_index.builds = 0
+load_index.cache_reads = 0
 
 
 def build_count_table(genome: np.ndarray, k: int = 8) -> np.ndarray:

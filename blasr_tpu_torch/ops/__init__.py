@@ -2,7 +2,11 @@
 
 The three hand-written CUDA kernels of the mapping path are reached through
 ``banded_cuda.banded_align``, ``gather.gather_spans`` and
-``gather.gather_rows``; each wrapper counts its kernel launches.
+``gather.gather_rows``; each wrapper counts its kernel launches
+(``launch_counts``). Each place where the mapping path makes the host wait
+for the device counts its waits, and the DP wrapper keeps the largest
+arrow tensor it made (``counters``). All are always on, one integer add
+where the work happens, and ``reset_launch_counts`` zeroes them.
 """
 
 import threading
@@ -10,6 +14,19 @@ import threading
 # the counters are read-modify-writes, and the sharded path launches from
 # one thread per shard
 COUNT_LOCK = threading.Lock()
+# name -> function of each place where the mapping path makes the host wait
+# for the device, registered by ``sync_site`` as its module is imported
+SYNC_SITES: dict = {}
+
+
+def sync_site(name: str):
+    """Register the decorated function as the sync site ``name``: it counts
+    the waits it makes in ``fn.syncs``."""
+    def register(fn):
+        fn.syncs = 0
+        SYNC_SITES[name] = fn
+        return fn
+    return register
 
 
 def kernel_wrappers() -> dict:
@@ -24,12 +41,17 @@ def kernel_wrappers() -> dict:
 
 
 def reset_launch_counts() -> None:
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
+
     for fn in kernel_wrappers().values():
         fn.launches = 0
         for by in ("launches_by_shape", "launches_by_path"):
             counts = getattr(fn, by, {})
             for key in counts:
                 counts[key] = 0
+    for fn in SYNC_SITES.values():
+        fn.syncs = 0
+    banded_align.max_arrow_bytes = 0
 
 
 def launch_counts() -> dict:
@@ -44,3 +66,12 @@ def dp_launch_counts() -> dict:
     from blasr_tpu_torch.ops.banded_cuda import banded_align
 
     return {f"W{w}/{m}": n for (w, m), n in banded_align.launches_by_shape.items() if n}
+
+
+def counters() -> dict:
+    """The host's waits for the device by site (``syncs``) and the largest
+    (S, I, W) arrow tensor a DP call made (``max_arrow_bytes``)."""
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
+
+    return {"syncs": {name: fn.syncs for name, fn in SYNC_SITES.items()},
+            "max_arrow_bytes": banded_align.max_arrow_bytes}

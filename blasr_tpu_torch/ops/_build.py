@@ -77,6 +77,9 @@ _cuda = None
 _host = None
 _host_tried = False
 BUILD_SECONDS = 0.0  # wall time of the last build in this process (0 = cached)
+# each compiler run of this process: the library and the seconds from its
+# build's start to its end (the compilers of a build run together)
+COMPILER_RUNS: list[dict] = []
 
 
 def _which(name: str, env: str | None = None) -> str | None:
@@ -131,6 +134,8 @@ def _build(jobs: list[tuple[str, list[str]]]) -> None:
     failed = []
     for out, tmp, cmd, proc in procs:
         log, _ = proc.communicate()
+        COMPILER_RUNS.append({"library": os.path.basename(out),
+                              "seconds": round(time.time() - t0, 3)})
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)} failed ({proc.returncode}):\n{log}")
         else:

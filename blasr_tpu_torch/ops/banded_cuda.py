@@ -14,7 +14,8 @@ substitution score to the 5x5 matrix.
 ``launches_by_shape[(W, mode)]`` counts the kernel's launches per band
 width and quality mode; ``launches_by_shape[(W, "guided")]`` and
 ``[(W, "matrix")]`` count, in addition, the launches with knots and with a
-matrix.
+matrix. ``max_arrow_bytes`` is the largest (S, I, W) arrow tensor a call
+made, on either path: the DP's share of a batch's device memory.
 """
 
 from __future__ import annotations
@@ -71,10 +72,12 @@ def banded_align(
     S = L + T - 1
     if not query.is_cuda:
         sched = qoff if knots is None else qoff_from_knots(knots, S)
-        return banded_align_plain(
+        res = banded_align_plain(
             query, qlen, target, tlo, thi, sched, qual,
             scores=scores, with_traceback=with_traceback, band_width=band_width,
         )
+        _note_arrows(res.arrows)
+        return res
     mode = qual_mode(qual)
     W = band_width
     if W not in BAND_WIDTHS:
@@ -105,6 +108,7 @@ def banded_align(
         torch.empty((S, I, W), dtype=torch.uint16, device=dev)
         if with_traceback else None
     )
+    _note_arrows(arrows)
     if I == 0:
         return BandedResult(best[0], best[1], best[2], arrows)
     lib = _build.load_library()
@@ -136,7 +140,15 @@ def banded_align(
     return BandedResult(best[0], best[1], best[2], arrows)
 
 
+def _note_arrows(arrows: torch.Tensor | None) -> None:
+    if arrows is not None:
+        with COUNT_LOCK:
+            banded_align.max_arrow_bytes = max(banded_align.max_arrow_bytes,
+                                               arrows.numel() * arrows.element_size())
+
+
 banded_align.launches = 0
+banded_align.max_arrow_bytes = 0
 banded_align.launches_by_shape = {
     (w, m): 0 for w in BAND_WIDTHS for m in QUAL_MODES + SWITCHES
 }

@@ -9,7 +9,8 @@ position ``p`` (END->START order); ``pack_codes_rows`` turns selected rows
 into the 2-bit wire format.
 
 This is plain PyTorch: a Python loop of up to ceil((2S+4)/8) iterations of
-eight sub-steps, which stops as soon as no item is active.
+eight sub-steps, which stops as soon as no item is active. That check
+waits for the device; ``walk_arrows_device.syncs`` counts the checks.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from blasr_tpu_torch.ops import COUNT_LOCK, sync_site
 from blasr_tpu_torch.ops.banded_align import (
     KNOT_LOG2,
     KNOT_SPACING,
@@ -54,6 +56,7 @@ def packed_width(S: int) -> int:
     return (S2 + 3) // 4
 
 
+@sync_site("walk")
 def walk_arrows_device(
     arrows: torch.Tensor,   # (S, I, W) uint16
     qoff: torch.Tensor,     # (S,) int32
@@ -136,6 +139,8 @@ def walk_arrows_device(
     mp = zeros.clone()
 
     for _ in range(NIT):
+        with COUNT_LOCK:
+            walk_arrows_device.syncs += 1
         if not bool(active.any()):
             break
         idxs, vals = [], []

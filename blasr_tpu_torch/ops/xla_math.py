@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from blasr_tpu_torch.ops.transfer import to_device
+
 _f32 = np.float32
 _MIN_NORMAL = float(_f32(2.0**-126))
 
@@ -218,7 +220,7 @@ def pow10(y: torch.Tensor) -> torch.Tensor:
     kd = xd + _EXP2_SHIFT
     k = kd.view(torch.int64) - _EXP2_SHIFT_BITS
     r = xd - (kd - _EXP2_SHIFT)
-    tab = torch.tensor(_EXP2_TAB, dtype=torch.float64, device=y.device)
+    tab = to_device(np.array(_EXP2_TAB, dtype=np.float64), y.device)
     scale = (((k >> 5) + 1023) << 52).view(torch.float64)   # 2^floor(k / 32)
     s = tab[k & 31] * scale
     z = _fma64(r, _EXP2_C[0], _EXP2_C[1])

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from blasr_tpu_torch.index.artifacts import GenomeIndex
+from blasr_tpu_torch.ops.transfer import to_device
 from blasr_tpu_torch.params import MappingParams
 from blasr_tpu_torch.pipeline.mapper import (
     DeviceIndex,
@@ -129,7 +130,7 @@ def sharded_map_batch(
     s = B // n
 
     def put(a, i, dev):
-        return torch.from_numpy(np.ascontiguousarray(a[i * s : (i + 1) * s])).to(dev)
+        return to_device(a[i * s : (i + 1) * s], dev)
 
     steps, slopes = [], []
     for i, dev in enumerate(devs):

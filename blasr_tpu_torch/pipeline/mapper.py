@@ -29,13 +29,13 @@ the three kernels of the path are CUDA on the card.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from blasr_tpu_torch.index.artifacts import GenomeIndex
+from blasr_tpu_torch.ops import COUNT_LOCK, sync_site
 from blasr_tpu_torch.ops.anchors import (
     find_anchors,
     find_anchors_bisect,
@@ -69,7 +69,9 @@ from blasr_tpu_torch.ops.traceback_device import (
     packed_width,
     walk_arrows_device,
 )
+from blasr_tpu_torch.ops.transfer import to_device, to_host
 from blasr_tpu_torch.params import MappingParams
+from blasr_tpu_torch.pipeline.trace import StageClock
 
 I32 = torch.int32
 _U32 = 0xFFFFFFFF
@@ -318,7 +320,7 @@ class HostBatchResult(NamedTuple):
 def unpack_result(res: WireResult, dp_candidates: int) -> HostBatchResult:
     wire = res.wire
     if isinstance(wire, torch.Tensor):
-        wire = wire.cpu().numpy()
+        wire = to_host(wire)
     nsel = len(SEL_FIELDS) * res.i2 * 4
     nmov = res.i2 * res.p
     sel = wire[:nsel].view(np.int32).reshape(len(SEL_FIELDS), res.i2)
@@ -385,7 +387,7 @@ def _revcomp_rows(codes: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     aligned = _phase_align(wv.to(torch.int64) & _U32, s & 7)
     out = _unpack_nibbles(aligned, L)
     ar = torch.arange(L, dtype=I32, device=dev)[None, :]
-    return torch.where(ar < lengths[:, None], out, torch.tensor(4, dtype=torch.uint8, device=dev))
+    return torch.where(ar < lengths[:, None], out, to_device(np.uint8(4), dev))
 
 
 def _reverse_qual_rows(qual: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -399,40 +401,19 @@ def _reverse_qual_rows(qual: torch.Tensor, lengths: torch.Tensor) -> torch.Tenso
     return torch.where(idx >= 0, rev, torch.full_like(rev, neutral))
 
 
+@sync_site("slope_median")
 def _nanmedian(x: torch.Tensor) -> torch.Tensor:
     """``jnp.nanmedian`` of a 1-d float32 tensor: the midpoint of the two
     middle non-NaN values (``torch.nanmedian`` returns the lower one);
-    NaN when every value is NaN."""
+    NaN when every value is NaN. Each index by a device scalar reads it on
+    the host: two waits (``_nanmedian.syncs``)."""
     v, _ = torch.sort(x)                                       # NaN sorts last
     n = torch.sum(~torch.isnan(x))
     lo = torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), 0, x.shape[0] - 1)
     hi = torch.clamp(torch.div(n, 2, rounding_mode="floor"), 0, x.shape[0] - 1)
+    with COUNT_LOCK:
+        _nanmedian.syncs += 2
     return (v[lo] + v[hi]) * 0.5
-
-
-class StageClock:
-    """Device-synchronised host clock per pipeline stage, for measurement
-    runs only: each ``mark`` waits for the device, so it removes the
-    overlap it measures."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.seconds: dict[str, float] = {}
-        self._t = None
-
-    def start(self) -> None:
-        self._sync()
-        self._t = time.perf_counter()
-
-    def mark(self, stage: str) -> None:
-        self._sync()
-        now = time.perf_counter()
-        self.seconds[stage] = self.seconds.get(stage, 0.0) + now - self._t
-        self._t = now
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
 
 def slope_median(slopes: torch.Tensor) -> torch.Tensor:
@@ -903,7 +884,7 @@ class Mapper:
                 replicas=self.replicas))
         else:
             def dev(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                return to_device(a, self.device, self.clock)
 
             wire = map_batch_wire(dev(codes), dev(lengths.astype(np.int32, copy=False)),
                                   self.device_index, p,

@@ -16,7 +16,6 @@ the gaps between them filled by the host SDP aligner (``ops/sdp.py``).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Sequence
 
 import numpy as np
@@ -28,8 +27,9 @@ from blasr_tpu_torch.io.batching import Read
 from blasr_tpu_torch.ops.banded_align import AlignScores
 from blasr_tpu_torch.ops.sdp import sdp_align
 from blasr_tpu_torch.params import MappingParams
-from blasr_tpu_torch.pipeline.mapper import StageClock
+from blasr_tpu_torch.pipeline import trace
 from blasr_tpu_torch.pipeline.runner import AlignmentRecord, MappingMetrics, run_mapping
+from blasr_tpu_torch.pipeline.trace import StageClock
 from blasr_tpu_torch.pipeline.traceback import OP_D, OP_I, OP_M, AlignmentPath
 
 SEG_SEP = "\x01seg\x01"
@@ -312,6 +312,7 @@ def run_mapping_piecewise(
     fm=None,
     split_if_longer: int | None = None,
     devices: list | None = None,
+    _pass: str = "first",
 ) -> tuple[list[AlignmentRecord], list[str]]:
     """Map with long-query segmentation + piecewise stitching, on ``device``.
 
@@ -322,10 +323,12 @@ def run_mapping_piecewise(
     runs (the reads passed through, then the segments) add their counters
     into ``metrics``, which also counts the segments, the reads passed
     through, the stitched records, the SDP gap fills and the host seconds
-    of stitching (``piecewise_*``).
+    of stitching (``piecewise_*``). The tracer's ``run`` span of pass
+    ``_pass`` holds the inner runs' (``whole``, ``segments``) and the
+    ``stitch`` span.
     """
     met = metrics if metrics is not None else MappingMetrics()
-    t_run0 = time.time()
+    t_run0 = trace.begin(clock, "run", pass_name=_pass)
     seg_len = min(params.segment_length, params.max_read_len)
     seg_reads, parents = split_long_reads(reads, seg_len, split_if_longer)
     base_params = dataclasses.replace(params, auto_segment=False)
@@ -343,7 +346,8 @@ def run_mapping_piecewise(
     run_kw = dict(device=device, clock=clock, fm=fm, devices=devices)
     if pass_through:
         sub = MappingMetrics()
-        r1, u1 = run_mapping(index, pass_through, base_params, metrics=sub, **run_kw)
+        r1, u1 = run_mapping(index, pass_through, base_params, metrics=sub, _pass="whole",
+                             **run_kw)
         met.add(sub)
         met.last_run_dp_cells = sub.last_run_dp_cells
         recs += list(r1)
@@ -362,13 +366,14 @@ def run_mapping_piecewise(
             min_interval=0, emit_moves=True,
         )
         sub = MappingMetrics()
-        r2, u2 = run_mapping(index, segments, seg_params, metrics=sub, **run_kw)
+        r2, u2 = run_mapping(index, segments, seg_params, metrics=sub, _pass="segments",
+                             **run_kw)
         met.add(sub)
         met.last_run_dp_cells = sub.last_run_dp_cells
         recs += list(r2)
         unmapped += list(u2)
 
-    t_stitch = time.time()
+    t_stitch = trace.begin(clock, "stitch")
     by_parent: dict[str, dict[int, list[AlignmentRecord]]] = {}
     out: list[AlignmentRecord] = []
     for rec in recs:
@@ -418,12 +423,12 @@ def run_mapping_piecewise(
     )
     order = {r.name: i for i, r in enumerate(reads)}
     out.sort(key=lambda a: (order.get(a.qname, 1 << 30), a.score))
-    met.piecewise_seconds += time.time() - t_stitch
+    met.piecewise_seconds += (trace.end(clock) - t_stitch) * 1e-9
     met.piecewise_segments += len(segments)
     met.piecewise_pass_through += len(pass_through)
     met.piecewise_stitched += len(out) - n_pass
     met.n_reads = len(reads)
     met.n_records = len(out)
     met.n_unmapped = len(unmapped)
-    met.wall_seconds = time.time() - t_run0
+    met.wall_seconds = (trace.end(clock) - t_run0) * 1e-9
     return out, unmapped

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-import time
 from collections import deque
 from typing import Optional, Sequence
 
@@ -38,10 +37,11 @@ import torch
 
 from blasr_tpu_torch.index.artifacts import GenomeIndex
 from blasr_tpu_torch.io.batching import Read, ReadBatch, batch_reads
+from blasr_tpu_torch.ops.transfer import to_host
 from blasr_tpu_torch.params import MappingParams
+from blasr_tpu_torch.pipeline import trace
 from blasr_tpu_torch.pipeline.mapper import (
     Mapper,
-    StageClock,
     WireResult,
     unpack_result,
 )
@@ -53,12 +53,15 @@ from blasr_tpu_torch.pipeline.secondary_refine import (
     stats_from_blocks,
     sum_anchors_window,
 )
+from blasr_tpu_torch.pipeline.trace import StageClock
 from blasr_tpu_torch.pipeline.traceback import AlignmentPath
 
 
 @dataclasses.dataclass
 class MappingMetrics:
-    """Per-run counters and host-clock stage timers."""
+    """Per-run counters and host-clock stage timers (``perf_counter``, the
+    tracer's clock: with a tracer on, each timer reads its span's
+    boundaries)."""
 
     n_reads: int = 0
     n_batches: int = 0
@@ -279,6 +282,7 @@ def run_mapping(
     skip_batches: int = 0,
     carried: dict | None = None,
     devices: list | None = None,
+    _pass: str = "first",
 ) -> tuple[list[AlignmentRecord], list[str]]:
     """Map reads on ``device``; returns (alignments, unmapped read names).
     ``devices`` (or ``params.ndevices``) splits each batch over several
@@ -295,8 +299,13 @@ def run_mapping(
     orders a read's tied records at random from ``random_seed``.
 
     ``metrics``, when given, receives the run's counters and timers;
-    ``clock`` a per-stage split of the device work (it synchronises after
-    every stage, so use it only in a measurement run); ``fm`` (an
+    ``clock`` (``pipeline/trace.StageClock``) the run's spans: ``run``
+    (its pass, ``_pass``; each pass's nested run opens its own), per batch
+    ``dispatch`` (the copies to the device and the step's stages),
+    ``fetch`` (the wait for the result) and ``finalize`` (with
+    ``secondary``), and ``stitch`` under piecewise mapping; a
+    synchronising clock also splits the device work by stage (use it only
+    in a measurement run); ``fm`` (an
     ``index.fm.FMIndex``) anchors by FM backward search (``-bwt``), and
     ``index`` may then hold no suffix array. With ``auto_segment`` on,
     a run holding reads longer than ``max_read_len`` goes through
@@ -327,10 +336,10 @@ def run_mapping(
 
         return run_mapping_piecewise(
             index, reads, params, device=device, metrics=metrics, clock=clock, fm=fm,
-            split_if_longer=params.max_read_len, devices=devices,
+            split_if_longer=params.max_read_len, devices=devices, _pass=_pass,
         )
     met = metrics if metrics is not None else MappingMetrics()
-    t_run0 = time.time()
+    t_run0 = trace.begin(clock, "run", pass_name=_pass)
     # adaptive candidate depth: a read without a second admitted window
     # maps alike at any depth, so the first pass runs one DP window a read
     # and the flagged reads are re-mapped at full depth, their records
@@ -357,12 +366,13 @@ def run_mapping(
     first_pass_cells = 0
 
     def drain_one():
-        t0 = time.time()
         bi, batch, res = inflight.popleft()
+        t0 = trace.begin(clock, "fetch", batch=(_pass, bi))
         # one d2h copy per batch; it waits for the batch's device work
-        res = res._replace(wire=res.wire.cpu().numpy())
-        t1 = time.time()
-        met.wait_seconds += t1 - t0
+        res = res._replace(wire=to_host(res.wire, clock))
+        t1 = trace.end(clock)
+        met.wait_seconds += (t1 - t0) * 1e-9
+        t1 = trace.begin(clock, "finalize", batch=(_pass, bi))
         out_b, unm_b = _finalize_batch(mapper, batch, res, met)
         amb: set[str] = set()
         if adaptive:
@@ -389,7 +399,7 @@ def run_mapping(
                 on_batch(bi, stream_b, stream_u, held)
             else:
                 on_batch(bi, stream_b, stream_u)
-        met.finalize_seconds += time.time() - t1
+        met.finalize_seconds += (trace.end(clock) - t1) * 1e-9
         met.n_batches += 1
         met.n_records += len(out_b)
         for r in out_b:
@@ -399,10 +409,10 @@ def run_mapping(
     for bi, batch in enumerate(batch_reads(reads, params.batch_size, params.max_read_len)):
         if bi < skip_batches:
             continue
-        t0 = time.time()
+        t0 = trace.begin(clock, "dispatch", batch=(_pass, bi))
         res = mapper.map_batch(batch.codes, batch.lengths, batch.qual)
         inflight.append((bi, batch, res))
-        met.dispatch_seconds += time.time() - t0
+        met.dispatch_seconds += (trace.end(clock) - t0) * 1e-9
         bk = met.buckets.setdefault(int(batch.codes.shape[1]), [0, 0])
         bk[0] += 1
         bk[1] += int((batch.indices >= 0).sum())
@@ -431,16 +441,16 @@ def run_mapping(
     unmapped = [n for n, c in carried.items() if not c["records"]] + unmapped
     stand_in_ids = {id(r) for r in stand_ins}
 
-    def nested(sub_reads, p):
+    def nested(name, sub_reads, p):
         sub = MappingMetrics()
         recs, unm = run_mapping(index, sub_reads, p, device=device, metrics=sub,
-                                clock=clock, fm=fm, devices=devices)
+                                clock=clock, fm=fm, devices=devices, _pass=name)
         met.add(sub, PASS_FIELDS)
         return recs, unm
 
     if adaptive and adaptive_names:
         retry_reads = [r for r in reads if r.name in adaptive_names]
-        r2, u2 = nested(retry_reads, dataclasses.replace(
+        r2, u2 = nested("adaptive", retry_reads, dataclasses.replace(
             params, adaptive_cd=False, band_escalation=False, sensitive_retry=False,
             max_expand=params.min_expand))
         before, after = _record_keys(out, adaptive_names), _record_keys(r2, adaptive_names)
@@ -456,7 +466,7 @@ def run_mapping(
         for e in range(params.min_expand + 1, params.max_expand + 1):
             if not retry_reads:
                 break
-            r2, u2 = nested(retry_reads, dataclasses.replace(
+            r2, u2 = nested(f"expand.{e}", retry_reads, dataclasses.replace(
                 params, min_expand=e, max_expand=e, sensitive_retry=False))
             got = {rec.qname for rec in r2}
             level = met.expand_levels.setdefault(e, [0, 0])
@@ -473,7 +483,7 @@ def run_mapping(
         retry_names = _escalation_candidates(best_by, params)
         retry_reads = [r for r in reads if r.name in retry_names]
         if retry_reads:
-            r2, _ = nested(retry_reads, dataclasses.replace(
+            r2, _ = nested("escalate", retry_reads, dataclasses.replace(
                 params, band_escalation=False, sensitive_retry=False,
                 narrow_band=0, guided_band=False))
             best2: dict[str, int] = {}
@@ -494,7 +504,7 @@ def run_mapping(
             n for n, pct in _best_pct(out).items() if pct < SENSITIVE_PCT}
         retry_reads = [r for r in reads if r.name in retry_names]
         if retry_reads:
-            r2, u2 = nested(retry_reads, dataclasses.replace(
+            r2, u2 = nested("sensitive", retry_reads, dataclasses.replace(
                 params, sensitive_retry=False,
                 n_candidates=min(params.n_candidates * 2, 16),
                 max_anchors_per_read=params.max_anchors_per_read * 2,
@@ -536,7 +546,7 @@ def run_mapping(
     met.n_reads = len(reads)
     met.n_unmapped = len(unmapped)
     met.last_run_dp_cells = first_pass_cells
-    met.wall_seconds = time.time() - t_run0
+    met.wall_seconds = (trace.end(clock) - t_run0) * 1e-9
     return out, unmapped
 
 
@@ -702,9 +712,9 @@ def _finalize_batch(
             continue
         score = int(scores[i2])
         if i2 % params.best_n >= 1:
-            t_adm = time.time()
+            t_adm = trace.begin(mapper.clock, "secondary")
             admitted = _admit_secondary(mapper, batch, res, b, i2, path, anchor_cache, met)
-            met.secondary_seconds += time.time() - t_adm
+            met.secondary_seconds += (trace.end(mapper.clock) - t_adm) * 1e-9
             if admitted is None:
                 continue
             path, score = admitted

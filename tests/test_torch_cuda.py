@@ -834,3 +834,31 @@ def test_sharded_threads_on_the_card_equal_serial(dev):
         runs[name] = ([format_m4(r) for r in recs], unmapped, launch_counts())
     assert runs["threads"] == runs["serial"] and runs["serial"][0]
     assert min(runs["serial"][2].values()) > 0
+
+
+def test_spans_hold_the_kernels_on_the_profilers_clock(dev):
+    """A tracer's span opened before one long kernel and closed after its
+    synchronise holds the kernel's device interval once converted onto the
+    profiler's clock (``StageClock.to_wall_ns``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blasr_tpu_torch.pipeline.trace import StageClock
+
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    clock = StageClock(dev, sync=False)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        clock.open("run")
+        torch.cuda._sleep(100_000_000)
+        torch.cuda.synchronize()
+        clock.close()
+    # the spin kernel of torch.cuda._sleep: the longest device event
+    k = max((e for e in prof.profiler.kineto_results.events()
+             if str(e.device_type()).endswith("CUDA")), key=lambda e: e.duration_ns())
+    span = clock.spans[0]
+    lo, hi = clock.to_wall_ns(span.start_ns), clock.to_wall_ns(span.end_ns)
+    print(f"kernel {k.name()} {k.duration_ns()} ns from {k.start_ns()} ns; the span opened "
+          f"{k.start_ns() - lo} ns before it and closed {hi - k.start_ns() - k.duration_ns()} "
+          f"ns after it")
+    assert lo <= k.start_ns() and k.start_ns() + k.duration_ns() <= hi
+    assert span.memory is not None
