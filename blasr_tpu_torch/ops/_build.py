@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 # no -march=native: the library may be loaded on another host than the
 # one that built it
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-CUDA_SOURCES = ("banded_dp.cu", "gather.cu")
+CUDA_SOURCES = ("banded_dp.cu", "gather.cu", "traceback_walk.cu")
 HOST_SOURCE = "host_native.cpp"
 
 _P = ctypes.c_void_p
@@ -57,6 +57,14 @@ _SIGNATURES = {
     ], ctypes.c_int),
     "gather_spans_launch": ([_P, _LL, _P, _P, _I, _I, _P], ctypes.c_int),
     "gather_rows_launch": ([_P, _I, _I, _P, _P, _I, _I, _P], ctypes.c_int),  # ... vec, stream
+    "traceback_walk_launch": ([
+        _P, _P, _P, _P,              # arrows (S, I, W) uint16, best_a best_w scores (I,) int32
+        _I, _P, _P, _I,              # band form, qoff (S,) or NULL, knots (I, nk) or NULL, nk
+        _P, _I, _I, _I, _I,          # num on the device or NULL, num, diag, half, hi
+        _P, _P, _I,                  # out (9, I) int32, moves (I, row) int32 or NULL, row
+        _I, _I, _I, _I,              # I S W max_steps
+        _P,                          # cudaStream_t
+    ], ctypes.c_int),
     "bn_sais_i32": ([_P, ctypes.c_int32, _P], ctypes.c_int),
     "bn_sais_i64": ([_P, ctypes.c_int64, _P], ctypes.c_int),
     "bn_encode_strip": ([ctypes.c_char_p, ctypes.c_int64, _P], ctypes.c_int64),

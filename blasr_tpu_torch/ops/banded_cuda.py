@@ -39,7 +39,7 @@ QUAL_MODES = ("none", "single", "dual")  # and its quality modes, in C order
 SWITCHES = ("guided", "matrix")      # and its band and score switches
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
     if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(
             f"{name}: expected contiguous {dtype} {shape}, got {t.dtype} "
@@ -82,22 +82,22 @@ def banded_align(
     W = band_width
     if W not in BAND_WIDTHS:
         raise ValueError(f"band_width {W} not in {BAND_WIDTHS}")
-    _check("query", query, torch.uint8, (I, L))
-    _check("qlen", qlen, torch.int32, (I,))
-    _check("target", target, torch.uint8, (I, T))
-    _check("tlo", tlo, torch.int32, (I,))
-    _check("thi", thi, torch.int32, (I,))
+    check_tensor("query", query, torch.uint8, (I, L))
+    check_tensor("qlen", qlen, torch.int32, (I,))
+    check_tensor("target", target, torch.uint8, (I, T))
+    check_tensor("tlo", tlo, torch.int32, (I,))
+    check_tensor("thi", thi, torch.int32, (I,))
     tensors = [("qlen", qlen), ("target", target), ("tlo", tlo), ("thi", thi)]
     if knots is None:
-        _check("qoff", qoff, torch.int32, (S,))
+        check_tensor("qoff", qoff, torch.int32, (S,))
         tensors.append(("qoff", qoff))
         NK = 0
     else:
         NK = n_knots(S)
-        _check("knots", knots, torch.int32, (I, NK))
+        check_tensor("knots", knots, torch.int32, (I, NK))
         tensors.append(("knots", knots))
     if qual is not None:
-        _check("qual", qual, qual.dtype, (I, L))
+        check_tensor("qual", qual, qual.dtype, (I, L))
         tensors.append(("qual", qual))
     dev = query.device
     for name, t in tensors:

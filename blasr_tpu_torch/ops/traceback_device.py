@@ -1,16 +1,20 @@
-"""Traceback walk over the stored arrow words, on the device.
+"""Traceback walk over the stored arrow words.
 
 Port of ``blasr_tpu.ops.traceback_device`` for unpacked arrows (``pack=1``):
-the walk chases each alignment's path back from its best cell, all items in
-lockstep, jumping whole diagonal runs in one sub-step and tallying
-match/mismatch/indel counts from the arrow words. Each emitted run is
-written as a boundary code ``((p + 1) << 2) | op`` at its expanded op
-position ``p`` (END->START order); ``pack_codes_rows`` turns selected rows
-into the 2-bit wire format.
+the walk chases each alignment's path back from its best cell, jumping
+whole diagonal runs in one sub-step and tallying match/mismatch/indel
+counts from the arrow words. Each emitted run is written as a boundary
+code ``((p + 1) << 2) | op`` at its expanded op position ``p`` (END->START
+order); ``pack_codes_rows`` turns selected rows into the 2-bit wire format.
 
-This is plain PyTorch: a Python loop of up to ceil((2S+4)/8) iterations of
-eight sub-steps, which stops as soon as no item is active. That check
-waits for the device; ``walk_arrows_device.syncs`` counts the checks.
+``walk_arrows_device`` is what the mapper calls. On CUDA tensors it
+launches the hand-written kernel ``csrc/traceback_walk.cu`` (one thread per
+item, one launch a call, no wait for the device) or raises, and counts its
+launches in ``walk_arrows_device.launches``. On CPU tensors it runs
+``walk_arrows_plain``, which defines the result bit for bit: plain PyTorch,
+all items in lockstep, a Python loop of up to ceil((2S+4)/8) iterations of
+eight sub-steps that stops as soon as no item is active. That check waits
+for the device; ``walk_arrows_device.syncs`` counts the checks.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from typing import NamedTuple
 
 import torch
 
-from blasr_tpu_torch.ops import COUNT_LOCK, sync_site
+from blasr_tpu_torch.ops import COUNT_LOCK, _build, sync_site
+from blasr_tpu_torch.ops.banded_cuda import check_tensor
 from blasr_tpu_torch.ops.banded_align import (
     KNOT_LOG2,
     KNOT_SPACING,
@@ -32,10 +37,17 @@ from blasr_tpu_torch.ops.banded_align import (
     SRC_LEFT,
     SRC_STOP,
     SRC_UP,
+    n_knots,
 )
 
 OP_NONE, OP_M, OP_I, OP_D = 0, 1, 2, 3
 WALK_UNROLL = 8  # sub-steps per loop iteration (one activity check each)
+# the arrow word's fields past its 3-bit source (ops/banded_align.py)
+SRC_MASK = 7
+E_SHIFT, F_SHIFT = 3, 4
+RUN_SHIFT, RUN_MASK = 5, 63
+MIS_SHIFT = 11
+BANDS = ("drift", "knots", "table")  # the kernel's band-offset forms, in C order
 
 
 class DeviceTraceback(NamedTuple):
@@ -56,8 +68,13 @@ def packed_width(S: int) -> int:
     return (S2 + 3) // 4
 
 
-@sync_site("walk")
-def walk_arrows_device(
+def walk_iterations(S: int) -> int:
+    """The plain walk's loop cap: ceil((2S + 4) / WALK_UNROLL) iterations,
+    WALK_UNROLL sub-steps each (the kernel's cap of sub-steps is the same)."""
+    return -(-(2 * S + 4) // WALK_UNROLL)
+
+
+def walk_arrows_plain(
     arrows: torch.Tensor,   # (S, I, W) uint16
     qoff: torch.Tensor,     # (S,) int32
     best_a: torch.Tensor,   # (I,) int32
@@ -76,7 +93,8 @@ def walk_arrows_device(
     are evaluated in closed form: the drift-slope schedule of ``qoff_num``
     (slope 0 when it is None); without either they are read from ``qoff``.
     ``with_moves=False`` skips the boundary-code matrix (the -m 4 path
-    needs only the stats).
+    needs only the stats). Runs on any device; each activity check counts
+    in ``walk_arrows_device.syncs``.
     """
     S, I, W = arrows.shape
     dev = arrows.device
@@ -124,8 +142,7 @@ def walk_arrows_device(
         def s1_at(a):
             return s1_tab[torch.clamp(a, 0, S - 1).long()]
 
-    max_iter = 2 * S + 4
-    NIT = -(-max_iter // WALK_UNROLL)
+    NIT = walk_iterations(S)
     OW = packed_width(S)
     S2 = 4 * OW
 
@@ -148,11 +165,11 @@ def walk_arrows_device(
             ac = torch.clamp(a, 0, S - 1)
             wc = torch.clamp(w, 0, W - 1)
             word = flat[(ac.long() * I + ii) * W + wc.long()].to(i32) & 0xFFFF
-            src = word & 7
-            ebit = (word >> 3) & 1
-            fbit = (word >> 4) & 1
-            run = (word >> 5) & 63
-            mcount = word >> 11
+            src = word & SRC_MASK
+            ebit = (word >> E_SHIFT) & 1
+            fbit = (word >> F_SHIFT) & 1
+            run = (word >> RUN_SHIFT) & RUN_MASK
+            mcount = word >> MIS_SHIFT
             cs1 = s1_at(ac)
 
             is_h = st == 0
@@ -232,6 +249,86 @@ def walk_arrows_device(
         n_ins=nins.to(i32),
         n_del=ndel.to(i32),
     )
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, dev: torch.device) -> None:
+    check_tensor(name, t, dtype, shape)
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, the arrows on {dev}")
+
+
+@sync_site("walk")
+def walk_arrows_device(
+    arrows: torch.Tensor,   # (S, I, W) uint16
+    qoff: torch.Tensor,     # (S,) int32
+    best_a: torch.Tensor,   # (I,) int32
+    best_w: torch.Tensor,   # (I,) int32
+    scores: torch.Tensor,   # (I,) int32 (< 0 where an alignment exists)
+    qoff_params: tuple[int, int, int] | None = None,  # (diag, W_band, L_q)
+    qoff_num: torch.Tensor | int | None = None,
+    with_moves: bool = True,
+    qoff_knots: torch.Tensor | None = None,  # (I, NK) per-item guided knots
+) -> DeviceTraceback:
+    """``walk_arrows_plain``'s result: on CUDA tensors from one launch of
+    ``csrc/traceback_walk.cu`` on the arrows' device and its current
+    stream, on CPU tensors from ``walk_arrows_plain``.
+
+    The kernel takes int32 contiguous (I,) ``best_a``, ``best_w`` and
+    ``scores`` on the arrows' device, and its band in the form the plain
+    walk would use: ``qoff_knots`` (I, n_knots(S)) int32; else
+    ``qoff_params`` with ``qoff_num`` a Python int, None (slope 0) or a
+    one-element int32 tensor, which the kernel reads on the device; else
+    ``qoff`` (S,) int32. Nothing here waits for the device.
+    """
+    if not arrows.is_cuda:
+        return walk_arrows_plain(arrows, qoff, best_a, best_w, scores, qoff_params,
+                                 qoff_num, with_moves, qoff_knots)
+    S, I, W = arrows.shape
+    dev = arrows.device
+    i32 = torch.int32
+    _check("arrows", arrows, torch.uint16, (S, I, W), dev)
+    for name, t in (("best_a", best_a), ("best_w", best_w), ("scores", scores)):
+        _check(name, t, i32, (I,), dev)
+    table = knots = num_ptr = None
+    nk = num = diag = half = hi = 0
+    if qoff_knots is not None:
+        band, nk, knots = "knots", n_knots(S), qoff_knots
+        _check("qoff_knots", knots, i32, (I, nk), dev)
+    elif qoff_params is not None:
+        band = "drift"
+        diag, Wb, Lq = qoff_params
+        half, hi = Wb // 2, max(0, Lq - Wb)
+        if isinstance(qoff_num, torch.Tensor) and qoff_num.is_cuda:
+            if qoff_num.dtype != i32 or qoff_num.numel() != 1 or qoff_num.device != dev:
+                raise ValueError(
+                    f"qoff_num: expected one int32 value on {dev}, got {qoff_num.dtype} "
+                    f"of shape {tuple(qoff_num.shape)} on {qoff_num.device}")
+            num_ptr = qoff_num
+        else:
+            num = QOFF_NUM_HALF if qoff_num is None else int(qoff_num)
+    else:
+        band, table = "table", qoff
+        _check("qoff", table, i32, (S,), dev)
+    out = torch.empty((9, I), dtype=i32, device=dev)
+    mv = torch.zeros((I, 4 * packed_width(S) + 1), dtype=i32, device=dev) if with_moves else None
+    err = _build.load_library().traceback_walk_launch(
+        arrows.data_ptr(), best_a.data_ptr(), best_w.data_ptr(), scores.data_ptr(),
+        BANDS.index(band),
+        table.data_ptr() if table is not None else None,
+        knots.data_ptr() if knots is not None else None, nk,
+        num_ptr.data_ptr() if num_ptr is not None else None, num, diag, half, hi,
+        out.data_ptr(), mv.data_ptr() if mv is not None else None,
+        mv.shape[1] if mv is not None else 0,
+        I, S, W, walk_iterations(S) * WALK_UNROLL,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, f"traceback_walk (W={W}, {band}{', moves' if with_moves else ''})")
+    with COUNT_LOCK:
+        walk_arrows_device.launches += 1
+    return DeviceTraceback(mv, *out)
+
+
+walk_arrows_device.launches = 0
 
 
 def pack_codes_rows(codes: torch.Tensor, nops: torch.Tensor, out_width: int) -> torch.Tensor:

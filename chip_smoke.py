@@ -25,12 +25,21 @@ Phases, each of which must pass:
      around back-to-back calls), its device time (CUDA-graph replay), its
      bound and, where one PyTorch call computes the same function, that
      call's times; each DP row names its kernel instance (W, quality,
-     guided, matrix) and its device ns per anti-diagonal step; then the
+     guided, matrix) and its device ns per anti-diagonal step; the
+     traceback walk kernel against the plain walk (the same PyTorch loop
+     on the card), with moves and without, at I = 10,240 items of L = 3328
+     (true-locus windows, the DP kernel's arrows at W = 64 and 256) and on
+     the first walk of a real batch (the benchmark cell's flags, 1024
+     reads of 769-1024 bp), each with the kernel's per-call and device
+     times, the plain walk's time and its activity checks, and the bound
+     from the kernel's own time per dependent load; then the
      microbenchmark's span gathers once on their own, with the launch
      counts reset, for K2' launches;
   4. the FASTA bench corpus through run_mapping on the card at the bench
      operating point (a warm-up run, then one timed run with the per-stage
-     clock on and every kernel launch counter reset just before it; each
+     clock on and every kernel launch counter reset just before it, in
+     which, as in every run_mapping run of later phases, the walk kernel
+     runs once a DP call; each
      later cell maps once, so, with no warm-up, to fit the time limit),
      the timed run's -m 4 lines equal to the JAX package's read by read
      (tools/jax_m4_reference.json; with --out the card's lines are written
@@ -51,7 +60,8 @@ Phases, each of which must pass:
      (one timed run with the per-stage clock): accuracy within 0.01 of the JAX
      package's CPU figure for the same flags, the records read by read,
      the guided DP kernel at W = 32 and W = 128, the walk's launches on
-     one batch against the unguided walk; the CLI on 256 of those reads
+     one batch (one launch of the walk kernel, the guided knots instance)
+     against the unguided walk; the CLI on 256 of those reads
      prints the lines of run_mapping;
   8. -scoreMatrix through the CLI on the 256 FASTA reads: a matrix equal
      to the default scores prints phase 4's lines, a transition-favouring
@@ -61,8 +71,9 @@ Phases, each of which must pass:
      admitted on the host): one timed run with the per-stage clock;
      every -m 5 line equal to the JAX package's read by read
      (tools/jax_m5_reference.json), accuracy equal to phase 4's, the
-     host seconds of the secondary admission, the walk's launches and
-     device ms on one batch with and without moves; the same records as SAM
+     host seconds of the secondary admission, the walk's launches (one
+     of the walk kernel) and device ms on one batch with and without
+     moves; the same records as SAM
      equal to the JAX package's read by read (tools/jax_sam_reference.json
      config3_sam, secondaries with FLAG 256); then the CLI with -bestn 2
      -m 5 on phase 4's 256 reads prints run_mapping's lines;
@@ -149,7 +160,8 @@ Phases, each of which must pass:
      byte-equal to phase 4's; (e) ``tools dotplot`` on 32 reads on the
      card, its anchor lines the JAX dump's in canonical order.
 The line before the last is a JSON object with each kernel's launches
-(each on its own path: the single-quality DP and the gathers on config 2;
+(each on its own path: the single-quality DP and the gathers on config 2,
+the walk on the FASTA corpus and, with moves, on config 2;
 K1, K2 and K3 also on config 4's timed run, ``launches_config4``,
 on phase 12's timed run, ``launches_k15`` and ``launches_k18``, and on
 phase 13's runs, ``launches_config5`` and ``launches_long``; on phase
@@ -257,6 +269,17 @@ RECORD_DIFF_LIMIT = {"fasta": 0, "clr": 0, "clr_guided": 0, "config3": 0,
 RECORD_FORMAT = {"fasta": "m4", "clr": "m4", "clr_guided": "m4", "config3": "m5",
                  "config4": "m4", "k15": "m4", "k18": "m4", "config5": "m4", "long": "m4",
                  **{cell: "m4" for cell in MODES_CELLS}}
+# the walk kernel against the plain walk: I = 10,240 items (B = 1024 reads x
+# 10 DP windows, the benchmark cell's batch) of L = 3328 at W = 64 and at the
+# mapper's W = 256 for that bucket, on true-locus windows; and one real batch
+# of the cell's flags at its median bucket
+WALK_ITEMS = 10240
+WALK_L = 3328
+WALK_WIDTHS = (64, 256)
+WALK_CELL_FLAGS = ["-m", "4", "-bestn", "1", "-nCandidates", "10", "-maxReadLen", "3328",
+                   "-batchSize", "1024"]
+WALK_BATCH_BUCKET = (768, 1024)   # read lengths of the real batch's bucket
+WALK_REPS = 10
 # H100 SXM peaks: HBM 3.35 TB/s; INT32 ALU 132 SMs x 64 lanes x 1.98 GHz
 # (Hopper architecture white paper), the rate of the DP's integer work
 HBM_BYTES_PER_S = 3.35e12
@@ -282,6 +305,8 @@ KERNEL_META = {
     "gather_spans": ("blasr_tpu_torch/csrc/gather.cu", "blasr_tpu/ops/dma_gather.py:38"),
     "gather_spans[micro_dma]": ("blasr_tpu_torch/csrc/gather.cu", "scripts/micro_dma.py:115"),
     "gather_rows": ("blasr_tpu_torch/csrc/gather.cu", "blasr_tpu/ops/dma_gather.py:127"),
+    # the JAX package's walk is plain jnp code, no pallas_call
+    "traceback_walk": ("blasr_tpu_torch/csrc/traceback_walk.cu", None),
 }
 CLI_FLAGS = ["-m", "4", "-device", "cuda", "-minMatch", "14", "-nCandidates", "4",
              "-dpCandidates", "2", "-anchorStride", "4", "-maxAnchorsPerRead", "128",
@@ -997,6 +1022,8 @@ def map_corpus(index, reads, params, warmup: bool = False, formatter=None,
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts, by_shape = launch_counts(), dp_launch_counts()
+    if counts["traceback_walk"] != counts["banded_dp"]:
+        raise AssertionError(f"the walk kernel did not run once a DP call: {counts}")
     peak = torch.cuda.max_memory_allocated()
     out = {}
     if sam_movie is not None:
@@ -1166,23 +1193,31 @@ def profile_batch(index, reads, params) -> dict:
 
 def walk_profile(index, reads, params, lo: int = 512, hi: int = 768) -> dict:
     """The traceback walk of one batch of reads of ``lo`` + 1 to ``hi`` bp
-    (``call_profile``)."""
+    (``call_profile`` by CUDA events): one launch of the walk kernel, beside
+    the fill of the boundary-code rows when it makes them."""
     sub = [r for r in reads if lo < len(r) <= hi][: params.batch_size]
     if not sub:
         raise AssertionError(f"no reads of {lo + 1}-{hi} bp to profile the walk on")
-    return call_profile("walk_arrows_device", index, sub, params)
+    out = call_profile("walk_arrows_device", index, sub, params, by_events=True)
+    if out["launches"] != 1:
+        raise AssertionError(f"the walk took other than one kernel launch: {out}")
+    return out
 
 
-def call_profile(name: str, index, sub, params) -> dict:
+def call_profile(name: str, index, sub, params, by_events: bool = False) -> dict:
     """The first call of the mapper's ``name`` (a function of
     pipeline/mapper.py's namespace) while ``sub`` maps: its wall time
     without the profiler (the median of three calls, taken first: the
     profiler's event processing outlasts its context and would slow the
     calls after it), then one call under torch.profiler, tracing the card
-    only, for its kernel launches and device time."""
+    only, for its kernel launches and device time. ``by_events`` (for a
+    function whose work is hand-written kernels, whose few events a long
+    process's profile can lose): the device time from CUDA events around
+    the call, and its launches as the kernel wrappers count them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from blasr_tpu_torch.ops import launch_counts
     from blasr_tpu_torch.pipeline import mapper
     from blasr_tpu_torch.pipeline.runner import run_mapping
 
@@ -1199,12 +1234,23 @@ def call_profile(name: str, index, sub, params) -> dict:
             fn(*args, **kw)
             torch.cuda.synchronize()
             walls.append((time.time() - t0) * 1e3)
+        out.update(reads=len(sub), unprofiled_ms=sorted(walls)[1])
+        if by_events:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            before = launch_counts()
+            e0.record()
+            res = fn(*args, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+            out.update(launches=sum(launch_counts().values()) - sum(before.values()),
+                       device_ms=e0.elapsed_time(e1))
+            return res
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             res = fn(*args, **kw)
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        out.update(reads=len(sub), unprofiled_ms=sorted(walls)[1],
-                   launches=sum(e.count for e in kern),
+        out.update(launches=sum(e.count for e in kern),
                    device_ms=sum(e.self_device_time_total for e in kern) / 1e3)
         if not out["launches"]:
             raise AssertionError(f"the profiler saw no kernel of {name}")
@@ -1219,6 +1265,157 @@ def call_profile(name: str, index, sub, params) -> dict:
         raise AssertionError(f"{name} never ran on the profiled batch")
     return out
 
+
+def compare_walk(label: str, args, kw: dict, latency_ns: float) -> dict:
+    """One walk call's inputs on the card: the kernel
+    (``walk_arrows_device``, one launch) against the plain walk
+    (``walk_arrows_plain``, the same PyTorch loop on the card) with the
+    boundary codes and without, every field equal; the kernel's per-call
+    time (CUDA events over back-to-back calls) and device time (CUDA-graph
+    replay), the plain walk's time (one call) and its activity checks. The
+    bound: the longest item's chain of dependent arrow loads, at most 8
+    sub-steps a check after the first, times ``latency_ns``, or the sectors
+    read, at least one 32-byte sector an emitted run, at 3.35 TB/s."""
+    import torch
+
+    from blasr_tpu_torch.ops import traceback_device as tb
+
+    S, I, W = args[0].shape
+    row = {"label": label, "I": I, "W": W, "S": S, "active": int((args[4] < 0).sum())}
+    for moves in (False, True):
+        before = tb.walk_arrows_device.launches
+        got = tb.walk_arrows_device(*args, with_moves=moves, **kw)
+        torch.cuda.synchronize()
+        if tb.walk_arrows_device.launches != before + 1:
+            raise AssertionError(f"walk[{label}]: not one kernel launch")
+        checks0 = tb.walk_arrows_device.syncs
+        t0 = time.perf_counter()
+        ref = tb.walk_arrows_plain(*args, with_moves=moves, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        checks = tb.walk_arrows_device.syncs - checks0
+        err = 0
+        for f in ref._fields:
+            a, b = getattr(got, f), getattr(ref, f)
+            if (a is None) != (b is None):
+                raise AssertionError(f"walk[{label}]: {f} present on one side only")
+            if a is not None:
+                err = max(err, int((a.long() - b.long()).abs().max()))
+        runs = int((ref.moves_codes[:, :-1] != 0).sum()) if moves else None
+        del got, ref
+
+        def call():
+            tb.walk_arrows_device(*args, with_moves=moves, **kw)
+
+        ms = cuda_ms(call, reps=WALK_REPS)
+        dev_ms = graph_ms(call, reps=WALK_REPS)
+        chain = 8 * max(checks - 1, 0)
+        key = "moves" if moves else "stats"
+        row[key] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "plain_checks": checks, "chain_max": chain,
+                    "latency_bound_ms": chain * latency_ns * 1e-6}
+        if runs is not None:
+            row[key].update(emitted_runs=runs, bytes_bound_ms=32 * runs / HBM_BYTES_PER_S * 1e3)
+        log(f"walk[{label}, {key}] I={I} W={W} S={S} ({row['active']} active): max_abs_err={err} "
+            f"kernel {ms:.3f} ms (device {dev_ms:.3f} ms) plain {plain_ms:.1f} ms "
+            f"({checks} activity checks, longest chain <= {chain} sub-steps: "
+            f"{row[key]['latency_bound_ms']:.3f} ms at {latency_ns:.0f} ns a load"
+            + (f"; {runs} emitted runs, >= {runs * 32 / 1e6:.1f} MB of sectors" if runs else "")
+            + ")")
+        if err != 0:
+            raise AssertionError(f"walk kernel disagrees with the plain walk on {label} ({key})")
+    return row
+
+
+def walk_latency_ns(dev) -> float:
+    """The walk kernel's time per sub-step on one chain of dependent arrow
+    loads, each in another DRAM page: one active item of I = 4096 deletes
+    its way back over S = 4096 anti-diagonals of W = 64 (each step 512 KB
+    from the last), the device time of one launch over S."""
+    import torch
+
+    from blasr_tpu_torch.ops.banded_align import SRC_LEFT
+    from blasr_tpu_torch.ops.traceback_device import walk_arrows_device
+
+    S, I, W = 4096, 4096, 64
+    i32 = torch.int32
+    arrows = torch.full((S, I, W), SRC_LEFT, dtype=torch.uint16, device=dev)
+    args = (arrows, torch.zeros(S, dtype=i32, device=dev),
+            torch.full((I,), S - 1, dtype=i32, device=dev), torch.zeros(I, dtype=i32, device=dev),
+            torch.cat([torch.full((1,), -1, dtype=i32, device=dev),
+                       torch.zeros(I - 1, dtype=i32, device=dev)]))
+    tb = walk_arrows_device(*args, with_moves=False)
+    if int(tb.nops[0]) != S or int(tb.nops[1:].abs().sum()) != 0:
+        raise AssertionError(f"latency probe walked {int(tb.nops[0])} of {S} steps")
+    ns = graph_ms(lambda: walk_arrows_device(*args, with_moves=False), reps=3, rounds=3) * 1e6 / S
+    log(f"walk kernel: {ns:.0f} ns a sub-step on one chain of {S} dependent loads")
+    return ns
+
+
+def check_walk(index, genome_fa: str, reads_fa: str) -> list:
+    """The walk kernel against the plain walk, with and without moves: at
+    I = WALK_ITEMS, L = WALK_L on true-locus windows (every item aligned,
+    the longest walks) with the DP kernel's arrows at each width of
+    WALK_WIDTHS and the mapper's drift band (slope numerator on the card);
+    then the first walk of a real batch, WALK_CELL_FLAGS on a batch of
+    simulated reads of the benchmark traffic's model in the
+    WALK_BATCH_BUCKET."""
+    import torch
+
+    from blasr_tpu_torch import bench
+    from blasr_tpu_torch.cli.blasr import build_parser, params_from_args
+    from blasr_tpu_torch.ops.banded_align import make_qoff_num
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
+    from blasr_tpu_torch.pipeline import mapper
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+    from blasr_tpu_torch.sim import simulate_reads
+
+    dev = torch.device("cuda")
+    latency_ns = walk_latency_ns(dev)
+    rows = []
+    t0 = time.time()
+    Q, qlen, Tg = bench.simulated_windows(index.genome, WALK_ITEMS, WALK_L, pad2=DP_PAD2,
+                                          seed=707)
+    T = Tg.shape[1]
+    log(f"walk windows: {WALK_ITEMS} true-locus reads of L = {WALK_L} ({time.time() - t0:.1f} s)")
+    dp_args = [torch.from_numpy(a).to(dev) for a in (Q, qlen, Tg)]
+    dp_args[3:3] = [torch.zeros(WALK_ITEMS, dtype=torch.int32, device=dev),
+                    torch.full((WALK_ITEMS,), T, dtype=torch.int32, device=dev)]
+    num = torch.tensor(DP_NUM, dtype=torch.int32, device=dev)
+    for W in WALK_WIDTHS:
+        qoff = make_qoff_num(WALK_L, T, W, DP_PAD2, num)
+        res = banded_align(*dp_args, qoff, with_traceback=True, band_width=W)
+        rows.append(compare_walk(
+            f"true-locus L={WALK_L} W={W}", (res.arrows, qoff, res.best_a, res.best_w, res.score),
+            dict(qoff_params=(DP_PAD2, W, WALK_L), qoff_num=num), latency_ns))
+        del res
+    del dp_args
+
+    lo, hi = WALK_BATCH_BUCKET
+    params = params_from_args(build_parser().parse_args([reads_fa, genome_fa, *WALK_CELL_FLAGS]))
+    B = params.batch_size
+    pool, _ = simulate_reads(index.genome, 6 * B, mean_len=1000, seed=708)
+    sub = [r for r in pool if lo < len(r) <= hi][:B]
+    if len(sub) < B:
+        raise AssertionError(f"only {len(sub)} reads of {lo + 1}-{hi} bp for the real batch")
+    fn = mapper.walk_arrows_device
+    batch = []
+
+    def traced(*args, with_moves=True, **kw):
+        if not batch:
+            W = args[0].shape[2]
+            batch.append(compare_walk(f"batch L={kw['qoff_params'][2]} W={W}", args, kw,
+                                      latency_ns))
+        return fn(*args, with_moves=with_moves, **kw)
+
+    mapper.walk_arrows_device = traced
+    try:
+        run_mapping(index, sub, params, device="cuda")
+    finally:
+        mapper.walk_arrows_device = fn
+    if not batch:
+        raise AssertionError("the real batch never reached the walk")
+    return rows + batch
 
 def write_fastq_reads(path: str, reads) -> None:
     from blasr_tpu_torch.io.fastq import write_fastq
@@ -2544,6 +2741,7 @@ def run(out_path: str | None) -> int:
     guided_rows = check_dp_guided(windows)
     matrix_rows = check_dp_matrix(windows)
     del windows
+    walk_rows = check_walk(index, genome_fa, reads_fa)
     t0 = time.time()
     di = make_device_index(index, params, "cuda")
     torch.cuda.synchronize()
@@ -2741,6 +2939,18 @@ def run(out_path: str | None) -> int:
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
+    main = next(r for r in walk_rows if r["label"] == f"true-locus L={WALK_L} W=64")
+    src, replaces = KERNEL_META["traceback_walk"]
+    kernels.append({
+        "name": "traceback_walk", "route": "cuda", "source": src, "replaces": replaces,
+        # without moves on the FASTA corpus, with moves on config 2
+        "launches": fasta["launches"]["traceback_walk"],
+        "launches_config2": config2["launches"]["traceback_walk"],
+        "max_abs_err": max(r[k]["max_abs_err"] for r in walk_rows for k in ("stats", "moves")),
+        "ms": main["stats"]["ms"], "device_ms": main["stats"]["device_ms"],
+        "plain_ms": main["stats"]["plain_ms"], "bound_ms": main["stats"]["latency_bound_ms"],
+        "bound_by": "latency", "library_ms": None,
+    })
     if any(k["launches"] <= 0 or min(k.get(f"launches_{c}", 1) for c in (
             "config4", "k15", "k18", "config5", "long", "cli_host", "resume")) <= 0
            or min(k.get("launches_modes", {"-": 1}).values()) <= 0
@@ -2759,6 +2969,7 @@ def run(out_path: str | None) -> int:
             json.dump({
                 "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                 "host_helpers": index_path, "dp": dp_rows, "dp_guided": guided_rows,
+                "walk": walk_rows,
                 "dp_matrix": matrix_rows, "gathers": g_rows, "micro_dma": micro_rows,
                 "micro_dma_launches": micro_launches,
                 "fasta": fasta, "cli": {k: v for k, v in cli.items() if k != "m4"},

@@ -5,6 +5,9 @@ Problems follow tests/test_pallas_interpret.py: reads embedded in random
 targets, W in {32, 64, 128, 256}, the slope-0 schedule and a sloped
 drift schedule (make_qoff_num)."""
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,6 +118,68 @@ def test_walk_without_moves_keeps_stats():
     assert lean.moves_codes is None
     for f in full._fields[1:]:
         assert torch.equal(getattr(full, f), getattr(lean, f)), f
+
+
+def test_walk_is_a_counted_kernel_wrapper():
+    """The walk is the kernel wrapper ``traceback_walk``: its launches show
+    in ``launch_counts()`` and ``reset_launch_counts()`` zeroes them; on the
+    CPU it runs the plain walk, which counts activity checks, no launch."""
+    from blasr_tpu_torch import ops
+
+    assert ops.kernel_wrappers()["traceback_walk"] is ttb.walk_arrows_device
+    ttb.walk_arrows_device.launches = 3
+    assert ops.launch_counts()["traceback_walk"] == 3
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["traceback_walk"] == 0
+    Q, qlen, Tc, tlo, thi, qoff, _ = _problem(5, 32)
+    got = dp_wrapper(*_torch(Q, qlen, Tc, tlo, thi, qoff), with_traceback=True, band_width=32)
+    ttb.walk_arrows_device(got.arrows, torch.from_numpy(qoff), got.best_a, got.best_w, got.score)
+    assert ops.launch_counts()["traceback_walk"] == 0
+    assert ops.counters()["syncs"]["walk"] > 0
+
+
+def _cu_constants(path):
+    """name -> value of every ``constexpr int kName = <integer>`` in a CUDA
+    source (comma-separated declarations included)."""
+    text = re.sub(r"//[^\n]*", "", open(path).read())
+    out = {}
+    for decl in re.findall(r"constexpr int ([^;]*);", text):
+        for part in decl.split(","):
+            name, _, value = (x.strip() for x in part.partition("="))
+            if re.fullmatch(r"-?\d+", value):
+                out[name] = int(value)
+    return out
+
+
+def test_walk_kernel_reads_the_arrow_word_as_the_plain_code():
+    """The walk kernel's constants (``csrc/traceback_walk.cu``, read from
+    its text) are the arrow word's layout as the plain DP writes it and the
+    plain walk reads it: the source codes, the E and F bits, the run and
+    mismatch fields; and the ops, the schedules' shifts and the band forms
+    as the plain walk and its wrapper number them."""
+    import blasr_tpu_torch
+
+    root = os.path.dirname(blasr_tpu_torch.__file__)
+    got = _cu_constants(os.path.join(root, "csrc", "traceback_walk.cu"))
+    want = {
+        "kSrcDiag": tba.SRC_DIAG, "kSrcUp": tba.SRC_UP, "kSrcLeft": tba.SRC_LEFT,
+        "kSrcE": tba.SRC_E, "kSrcF": tba.SRC_F, "kSrcStop": tba.SRC_STOP,
+        "kSrcDiagStart": tba.SRC_DIAG_START, "kSrcMask": ttb.SRC_MASK,
+        "kEShift": ttb.E_SHIFT, "kFShift": ttb.F_SHIFT, "kRunShift": ttb.RUN_SHIFT,
+        "kRunMask": ttb.RUN_MASK, "kMisShift": ttb.MIS_SHIFT,
+        "kOpM": ttb.OP_M, "kOpI": ttb.OP_I, "kOpD": ttb.OP_D,
+        "kQoffShift": tba.QOFF_SHIFT, "kKnotLog2": tba.KNOT_LOG2,
+        **{f"kBand{b.capitalize()}": i for i, b in enumerate(ttb.BANDS)},
+    }
+    assert {k: got.get(k) for k in want} == want
+    # the plain DP packs its word with the same fields
+    dp_src = open(os.path.join(root, "ops", "banded_align.py")).read()
+    shifts = re.search(r"word = src \| \(ebit << (\d+)\) \| \(fbit << (\d+)\) "
+                       r"\| \(R_new << (\d+)\) \| \(M_emit << (\d+)\)", dp_src)
+    assert tuple(map(int, shifts.groups())) == (ttb.E_SHIFT, ttb.F_SHIFT, ttb.RUN_SHIFT,
+                                                ttb.MIS_SHIFT)
+    # the source field is the bits below the E bit, and holds every source
+    assert ttb.SRC_MASK == (1 << ttb.E_SHIFT) - 1 >= tba.SRC_DIAG_START
 
 
 def test_score_only_and_make_qoff():

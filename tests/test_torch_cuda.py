@@ -399,6 +399,108 @@ def test_mapq_math_is_the_same_on_the_card(dev):
     assert torch.equal(card.view(torch.int32), cpu.view(torch.int32))
 
 
+WALK_NUM = 33437
+
+
+def _walk_case(dev, W, band):
+    """The walk's inputs on the card for ``_dp_case``'s items: arrows from
+    the DP kernel (with the same items' knots for ``band == "knots"``),
+    every fifth score set to 0 and every seventh from the second to 4, so
+    those items are never active, and the band in the form ``band``."""
+    from blasr_tpu_torch.ops.banded_cuda import banded_align
+
+    args = [a.to(dev) for a in _dp_case(W + 5, W, num=WALK_NUM)]
+    L, T = args[0].shape[1], args[2].shape[1]
+    drift = dict(qoff_params=((T - L) // 2, W, L), qoff_num=WALK_NUM)
+    if band == "knots":
+        knots = _knots(W + 5, W).to(dev)
+        res = banded_align(*args[:5], None, knots=knots, with_traceback=True, band_width=W)
+        kw = dict(drift, qoff_knots=knots)
+    else:
+        res = banded_align(*args, with_traceback=True, band_width=W)
+        kw = {"table": {}, "drift_int": drift,
+              "drift_tensor": dict(drift, qoff_num=torch.tensor(WALK_NUM, dtype=torch.int32,
+                                                                device=dev))}[band]
+    scores = res.score.clone()
+    scores[::5] = 0
+    scores[1::7] = 4
+    assert (scores < 0).sum() > 0 and (scores >= 0).sum() > 0
+    return (res.arrows, args[5], res.best_a, res.best_w, scores), kw
+
+
+def _walk_edge_case(dev, case):
+    """Paths that leave the matrix at a < 0 (``left``: deletions from a0 =
+    40), at w < 0 (``up``: insertions), that run into the sub-step cap
+    (``cap``: a0 far past S - 1, so a path of deletions outlives the loop),
+    and random words (``random``: every source, E and F bits, run and
+    mismatch fields, starts outside the matrix), with the table band or
+    the drift band."""
+    from blasr_tpu_torch.ops.banded_align import SRC_LEFT, SRC_UP
+
+    S, I, W = 84, 3, 32
+    qoff = torch.zeros(S, dtype=torch.int32)
+    kw = {}
+    if case == "random":
+        rng = np.random.default_rng(5)
+        S, I = 60, 256
+        arrows = torch.from_numpy(rng.integers(0, 1 << 16, (S, I, W)).astype(np.uint16))
+        qoff = torch.from_numpy(np.cumsum(rng.integers(0, 2, S)).astype(np.int32))
+        best_a = torch.from_numpy(rng.integers(-2, S + 3, I).astype(np.int32))
+        best_w = torch.from_numpy(rng.integers(-1, W + 1, I).astype(np.int32))
+        scores = torch.from_numpy(rng.integers(-3, 2, I).astype(np.int32))
+        kw = dict(qoff_params=(10, W, 50), qoff_num=30011)
+    else:
+        arrows = torch.full((S, I, W), SRC_UP if case == "up" else SRC_LEFT, dtype=torch.uint16)
+        best_a = torch.full((I,), {"left": 40, "up": 83, "cap": 3 * S}[case], dtype=torch.int32)
+        best_w = torch.tensor([0, 5, 31], dtype=torch.int32)
+        scores = torch.tensor([-5, 0, -1], dtype=torch.int32)
+    return [t.to(dev) for t in (arrows, qoff, best_a, best_w, scores)], kw
+
+
+def _assert_walk_on_the_card_equals_plain(dev, args, kw, moves):
+    """The kernel's walk, made under ``set_sync_debug_mode("error")`` (so
+    nothing waits for the device), equals the plain walk on the CPU in
+    every field, and counts one launch."""
+    from blasr_tpu_torch.ops.traceback_device import walk_arrows_device, walk_arrows_plain
+
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    ref = walk_arrows_plain(*[cpu(a) for a in args], with_moves=moves,
+                            **{k: cpu(v) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    before = walk_arrows_device.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = walk_arrows_device(*args, with_moves=moves, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert walk_arrows_device.launches == before + 1
+    for f in ref._fields:
+        r, g = getattr(ref, f), getattr(got, f)
+        if r is None:
+            assert g is None, f
+            continue
+        assert g.dtype == r.dtype and g.is_cuda, f
+        assert torch.equal(g.cpu(), r), f
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256])
+@pytest.mark.parametrize("band", ["table", "drift_int", "drift_tensor", "knots"])
+@pytest.mark.parametrize("moves", [False, True])
+def test_walk_kernel_matches_plain(dev, W, band, moves):
+    args, kw = _walk_case(dev, W, band)
+    _assert_walk_on_the_card_equals_plain(dev, args, kw, moves)
+
+
+@pytest.mark.parametrize("case", ["left", "up", "cap", "random"])
+@pytest.mark.parametrize("moves", [False, True])
+def test_walk_kernel_edges_match_plain(dev, case, moves):
+    args, kw = _walk_edge_case(dev, case)
+    _assert_walk_on_the_card_equals_plain(dev, args, kw, moves)
+
+
 def test_kernel_wrappers_validate_inputs(dev):
     from blasr_tpu_torch.ops.gather import gather_rows, gather_spans
 
@@ -426,6 +528,36 @@ def test_kernel_wrappers_validate_inputs(dev):
     with pytest.raises(ValueError):
         gather_rows(torch.zeros((8, 8), dtype=torch.int32, device=dev),
                     torch.zeros(4, dtype=torch.int64, device=dev))
+
+
+
+def _walk_inputs(dev, I=4, S=16, W=32):
+    i32 = torch.int32
+    return [torch.zeros((S, I, W), dtype=torch.uint16, device=dev),
+            torch.zeros(S, dtype=i32, device=dev), torch.zeros(I, dtype=i32, device=dev),
+            torch.zeros(I, dtype=i32, device=dev), torch.full((I,), -1, dtype=i32, device=dev)]
+
+
+@pytest.mark.parametrize("fault", ["arrows_dtype", "scores_on_cpu", "best_a_strided",
+                                   "knots_shape", "qoff_num_dtype", "qoff_shape"])
+def test_walk_wrapper_validates_inputs(dev, fault):
+    from blasr_tpu_torch.ops.traceback_device import walk_arrows_device
+
+    args, kw = _walk_inputs(dev), {}
+    if fault == "arrows_dtype":
+        args[0] = args[0].to(torch.int32)
+    elif fault == "scores_on_cpu":
+        args[4] = args[4].cpu()
+    elif fault == "best_a_strided":
+        args[2] = torch.zeros(8, dtype=torch.int32, device=dev)[::2]
+    elif fault == "knots_shape":
+        kw = dict(qoff_knots=torch.zeros((4, 1), dtype=torch.int32, device=dev))
+    elif fault == "qoff_num_dtype":
+        kw = dict(qoff_params=(0, 32, 8), qoff_num=torch.tensor(3.0e4, device=dev))
+    else:
+        args[1] = args[1][:8]
+    with pytest.raises(ValueError):
+        walk_arrows_device(*args, **kw)
 
 
 @pytest.mark.parametrize("qual", [None, "single", "dual"])
@@ -458,6 +590,7 @@ def test_mapping_on_the_card_equals_cpu(dev, qual):
     assert [format_m4(r) for r in gpu[0]] == [format_m4(r) for r in cpu[0]]
     assert gpu[1] == cpu[1]
     assert all(v > 0 for v in launch_counts().values())
+    assert launch_counts()["traceback_walk"] == launch_counts()["banded_dp"]
     assert banded_align.launches_by_shape[(32, qual or "none")] > 0
 
 
