@@ -199,7 +199,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     _compat_flag = [
         ("extend", "local 0-clamp + window pad extend alignments natively"),
         ("global", "piecewise path covers whole-query alignment"),
-        ("noRefineAlignments", "single-pass design has no second stage"),
+        ("noRefineAlignments", "ignored: a -bestn secondary on its SDP chain's span is "
+                               "always refined along the chain"),
         ("noRefineAlign", "same"),
         ("refineBetweenAnchorsOnly", "piecewise/-alignContigs does this"),
         ("rbao", "same"),

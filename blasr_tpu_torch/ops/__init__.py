@@ -5,8 +5,10 @@ The four hand-written CUDA kernels of the mapping path are reached through
 and ``traceback_device.walk_arrows_device``; each wrapper counts its kernel
 launches (``launch_counts``). Each place where the mapping path makes the
 host wait for the device counts its waits, and the DP wrapper keeps the largest
-arrow tensor it made (``counters``). All are always on, one integer add
-where the work happens, and ``reset_launch_counts`` zeroes them.
+arrow tensor it made (``counters``). The -bestn secondary path counts its
+records and its refinement's DP calls (``SECONDARY``). All are always on,
+one integer add where the work happens, and ``reset_launch_counts`` zeroes
+them.
 """
 
 import threading
@@ -17,6 +19,19 @@ COUNT_LOCK = threading.Lock()
 # name -> function of each place where the mapping path makes the host wait
 # for the device, registered by ``sync_site`` as its module is imported
 SYNC_SITES: dict = {}
+# the -bestn secondary path (``pipeline/runner.py``): rank >= 1 records
+# checked, dropped by the min_interval gate, dropped by the cut before the
+# refinement (no SDP chain, or an SDP score above -maxScore), that took the
+# SDP chain's span, that the refinement aligned, dropped by -maxScore on
+# the refined score (or left with no alignment), and the refinement's DP
+# calls (one a batch that has such records)
+SECONDARY = dict.fromkeys(
+    ("checked", "gated", "cut_sdp", "replaced", "refined", "cut_refined", "refine_calls"), 0)
+
+
+def count_secondary(name: str, n: int = 1) -> None:
+    with COUNT_LOCK:
+        SECONDARY[name] += n
 
 
 def sync_site(name: str):
@@ -52,6 +67,8 @@ def reset_launch_counts() -> None:
                 counts[key] = 0
     for fn in SYNC_SITES.values():
         fn.syncs = 0
+    for key in SECONDARY:
+        SECONDARY[key] = 0
     banded_align.max_arrow_bytes = 0
 
 
@@ -70,9 +87,11 @@ def dp_launch_counts() -> dict:
 
 
 def counters() -> dict:
-    """The host's waits for the device by site (``syncs``) and the largest
-    (S, I, W) arrow tensor a DP call made (``max_arrow_bytes``)."""
+    """The host's waits for the device by site (``syncs``), the largest
+    (S, I, W) arrow tensor a DP call made (``max_arrow_bytes``) and the
+    secondary path's counts (``secondary``, as ``SECONDARY`` names them)."""
     from blasr_tpu_torch.ops.banded_cuda import banded_align
 
     return {"syncs": {name: fn.syncs for name, fn in SYNC_SITES.items()},
-            "max_arrow_bytes": banded_align.max_arrow_bytes}
+            "max_arrow_bytes": banded_align.max_arrow_bytes,
+            "secondary": dict(SECONDARY)}

@@ -20,13 +20,14 @@ The lines are the JAX package's, byte for byte, with one repair:
 where the JAX writer takes the record's stream index for a position in
 ``reads``; under a read selector (``-start``, ``-stride``, ...) the JAX
 writer puts a record under another read's SEQ. Its two routes to a CIGAR
-are kept: a record whose path carries the walk's packed move string goes
-through ``native.sam_fields`` (CIGAR, SEQ and QUAL in one pass); a
-secondary whose ops come from its SDP blocks goes through
-``native.xeq_cigar``. Both run the C++ helpers, with their plain versions
-behind them, so the JAX writer's numpy CIGAR route (``_xeq_runs``, which
-runs there only without its library) has no caller here and is not
-copied. The @PG line is the JAX package's text, ``blasr_tpu`` as its ID
+are kept: a record whose path carries the walk's packed move string
+(each record of a mapped batch, refined secondaries too) goes through
+``native.sam_fields`` (CIGAR, SEQ and QUAL in one pass); a record whose
+path carries only ops (one stitched from segments, the JAX package's
+SDP-block secondaries) goes through ``native.xeq_cigar``. Both run the C++
+helpers, with their plain versions behind them, so the JAX writer's numpy
+CIGAR route (``_xeq_runs``, which runs there only without its library)
+has no caller here and is not copied. The @PG line is the JAX package's text, ``blasr_tpu`` as its ID
 and PN included, with the command line as its CL (``program_line``, the
 port's name when none is given): the port's header is the JAX package's
 but for the command line.

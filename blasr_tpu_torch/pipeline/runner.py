@@ -15,8 +15,11 @@ records at random. A caller may stream the records batch by batch
 (``skip_batches``, ``carried``). With
 ``best_n > 1`` each secondary (rank >= 1) passes the reference's host
 admission (``pipeline/secondary_refine.py``: SDP over the candidate's
-chain, the ``min_interval`` anchor gate, ``-maxScore`` on the SDP score)
-and takes the SDP chain's span where the two spans disagree. A run that
+chain, the ``min_interval`` anchor gate, ``-maxScore`` on the SDP score);
+where the SDP chain's span and the DP's disagree, the secondary is
+refined along the chain (the reference's RefineAlignment: one guided DP
+call and one walk a batch) and ``-maxScore`` cuts the refined score. A
+run that
 holds reads longer than ``max_read_len`` maps them piecewise
 (``pipeline/piecewise.py``).
 
@@ -30,27 +33,41 @@ from __future__ import annotations
 import dataclasses
 import inspect
 from collections import deque
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from blasr_tpu_torch.index.artifacts import GenomeIndex
 from blasr_tpu_torch.io.batching import Read, ReadBatch, batch_reads
-from blasr_tpu_torch.ops.transfer import to_host
+from blasr_tpu_torch.ops import count_secondary
+from blasr_tpu_torch.ops.banded_align import (
+    KNOT_SPACING,
+    QOFF_NUM_HALF,
+    QV_NEUTRAL,
+    QV_NEUTRAL_DUAL,
+    AlignScores,
+    make_qoff_knots,
+)
+from blasr_tpu_torch.ops.traceback_device import (
+    pack_codes_rows,
+    packed_width,
+    walk_arrows_device,
+)
+from blasr_tpu_torch.ops.transfer import to_device, to_host
 from blasr_tpu_torch.params import MappingParams
+from blasr_tpu_torch.pipeline import mapper as mapper_mod
 from blasr_tpu_torch.pipeline import trace
 from blasr_tpu_torch.pipeline.mapper import (
     Mapper,
     WireResult,
+    host_qual,
     unpack_result,
 )
 from blasr_tpu_torch.pipeline.secondary_refine import (
-    blocks_to_ops,
     reference_anchor_list,
     revcomp_codes,
     sdp_interval_align,
-    stats_from_blocks,
     sum_anchors_window,
 )
 from blasr_tpu_torch.pipeline.trace import StageClock
@@ -90,9 +107,10 @@ class MappingMetrics:
     escalation_won: int = 0
     sensitive_reads: int = 0
     sensitive_won: int = 0
-    # the -bestn secondary admission (inside finalize): host seconds, rank
-    # >= 1 records it took, those the min_interval gate dropped, and those
-    # admitted with the SDP chain's span, score and ops
+    # the -bestn secondary path (inside finalize): host seconds of the
+    # admission and the refinement, rank >= 1 records it took, those the
+    # min_interval gate dropped, and those that took the SDP chain's span
+    # (refined along the chain; ``ops.counters()["secondary"]`` has the rest)
     secondary_seconds: float = 0.0
     secondary_checked: int = 0
     secondary_gated: int = 0
@@ -164,6 +182,7 @@ class AlignmentRecord:
     path: Optional[AlignmentPath] = None
     read_index: int = -1
     nhits_considered: int = 0
+    refined: bool = False  # a secondary refined along its SDP chain
 
 
 def _best_by_read(records) -> dict:
@@ -302,8 +321,10 @@ def run_mapping(
     ``clock`` (``pipeline/trace.StageClock``) the run's spans: ``run``
     (its pass, ``_pass``; each pass's nested run opens its own), per batch
     ``dispatch`` (the copies to the device and the step's stages),
-    ``fetch`` (the wait for the result) and ``finalize`` (with
-    ``secondary``), and ``stitch`` under piecewise mapping; a
+    ``fetch`` (the wait for the result) and ``finalize`` (with a
+    ``secondary`` span per rank >= 1 record admitted and a ``refine`` span
+    per batch whose secondaries are refined), and ``stitch`` under
+    piecewise mapping; a
     synchronising clock also splits the device work by stage (use it only
     in a measurement run); ``fm`` (an
     ``index.fm.FMIndex``) anchors by FM backward search (``-bwt``), and
@@ -576,25 +597,58 @@ def _paths_from_device(res) -> list[Optional[AlignmentPath]]:
     return out
 
 
+# RefineAlignment's band (GuidedAlign, 16 cells each side of the guide,
+# Blasr.cpp:833-916)
+REFINE_BAND = 32
+
+
+class _Guide(NamedTuple):
+    """A secondary that took the SDP chain's span, as its refinement takes
+    it: its batch row and strand, the chain's span of the oriented read,
+    the genome window around the chain's span (global, inside its contig),
+    the chain's blocks as (oriented read, global genome, length), and the
+    DP item's window start, the origin of the record's target coordinates."""
+
+    row: int
+    strand: int
+    q_lo: int
+    q_hi: int
+    g_lo: int
+    g_hi: int
+    blocks: list
+    t0: int
+
+
+def _count(met: Optional[MappingMetrics], name: str) -> None:
+    """One event of the secondary path: the process's counter
+    (``ops.counters()["secondary"]``) and the run's ``secondary_<name>``
+    where ``MappingMetrics`` has one."""
+    count_secondary(name)
+    field = "secondary_" + name
+    if met is not None and hasattr(met, field):
+        setattr(met, field, getattr(met, field) + 1)
+
+
 def _admit_secondary(
     mapper: Mapper, batch: ReadBatch, res, b: int, i2: int,
     path: AlignmentPath, anchor_cache: dict, met: MappingMetrics,
-) -> Optional[tuple[AlignmentPath, int]]:
+) -> Optional[tuple[Optional[AlignmentPath], int, Optional[_Guide]]]:
     """The -bestn secondary admission of rank >= 1 record ``i2`` (row ``b``
     of the batch), reference semantics: each candidate interval's reported
     alignment is its SDPAlign (Local, detailed) result and the -maxScore cut
     acts on THAT score (AlignIntervals Blasr.cpp:1716-1724 ->
-    RemoveLowQualityAlignments :2618 truncation). Returns the record's
-    (path, score), or None when the reference never emits it: no chain,
-    an anchor sum over the interval window at or below ``min_interval``,
-    or an SDP score above ``max_score``. The DP's path and score stay when
-    the SDP chain covers the same span (0.9 overlap on both axes); else
-    the record takes the chain's span, score, stats and ops."""
+    RemoveLowQualityAlignments :2618 truncation). Returns None when the
+    reference never emits the record: no chain, an anchor sum over the
+    interval window at or below ``min_interval``, or an SDP score above
+    ``max_score``. Else (path, score, None) with the DP's path and score
+    when the SDP chain covers the same span (0.9 overlap on both axes), or
+    (None, SDP score, guide) when the record takes the chain's span: the
+    batch's refinement aligns it along the chain (``_refine_secondaries``)."""
     params = mapper.params
     index = mapper.index
     seqdb = index.seqdb
     genome = index.genome
-    met.secondary_checked += 1
+    _count(met, "checked")
     st = int(res.sel_strand[i2])
     n_b = int(batch.lengths[b])
     qc = batch.codes[b, :n_b]
@@ -624,6 +678,7 @@ def _admit_secondary(
     )
     _, b0 = sdp_interval_align(qc, genome[w0_lo:w0_hi], prefix_len=0, **sdp_kw)
     if not b0:
+        _count(met, "cut_sdp")
         return None
     q_lo0 = b0[0][0]
     q_hi0 = b0[-1][0] + b0[-1][2]
@@ -647,7 +702,7 @@ def _admit_secondary(
             )
         _aq, at_r, al_r = anchor_cache[akey]
         if sum_anchors_window(at_r, al_r, ws_lo, ws_hi) <= params.min_interval:
-            met.secondary_gated += 1
+            _count(met, "gated")
             return None
     # PASS 2, the reference's aligned interval: chain corners stretched by
     # approximateMaxInsertionRate=1.3 times the unaligned read prefix and
@@ -655,9 +710,9 @@ def _admit_secondary(
     # sdpPrefix=50)
     w_lo = max(int(t_lo0 - q_lo0 * 1.3), c_lo)
     w_hi = min(int(t_hi0 + (n_b - q_hi0) * 1.3), c_hi)
-    window = genome[w_lo:w_hi]
-    sdp_sc, sdp_blocks = sdp_interval_align(qc, window, **sdp_kw)
+    sdp_sc, sdp_blocks = sdp_interval_align(qc, genome[w_lo:w_hi], **sdp_kw)
     if not sdp_blocks or sdp_sc > params.max_score:
+        _count(met, "cut_sdp")
         return None
     q_s2 = sdp_blocks[0][0]
     q_e2 = sdp_blocks[-1][0] + sdp_blocks[-1][2]
@@ -670,23 +725,149 @@ def _admit_secondary(
 
     if _agree(path.q_start, path.q_end, q_s2, q_e2) and _agree(
             path.t_start, path.t_end, t_s2, t_e2):
-        return path, int(res.sel_score[i2])
-    met.secondary_replaced += 1
-    nm, nx, ni, nd = stats_from_blocks(sdp_blocks, qc, window)
-    sdp_path = AlignmentPath(
-        q_start=q_s2, q_end=q_e2, t_start=t_s2, t_end=t_e2,
-        ops=blocks_to_ops(sdp_blocks), score=sdp_sc,
-        n_match=nm, n_mismatch=nx, n_ins=ni, n_del=nd,
+        return path, int(res.sel_score[i2]), None
+    _count(met, "replaced")
+    # the genome window: the chain's span, widened by the band after it and
+    # by a knot spacing before it, so that the chain's first cell sits on a
+    # knot (query 0, target KNOT_SPACING) and the band's clip at query 0
+    # bends the knots' lerp only before it
+    guide = _Guide(
+        row=b, strand=st, q_lo=q_s2, q_hi=q_e2,
+        g_lo=max(t0_i + t_s2 - KNOT_SPACING, c_lo),
+        g_hi=min(t0_i + t_e2 + REFINE_BAND // 2, c_hi),
+        blocks=[(bq, w_lo + bt, bl) for bq, bt, bl in sdp_blocks], t0=t0_i,
     )
-    return sdp_path, sdp_sc
+    return None, sdp_sc, guide
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _chain_knots(guides: Sequence[_Guide], S: int, L: int, W: int) -> np.ndarray:
+    """(I, NK) guide knots of the refinement's band, the role of the guide
+    that RefineAlignment's GuidedAlign builds from the alignment's blocks
+    (Blasr.cpp:833-916): the guided DP's knots (``make_qoff_knots``) with
+    each block's first and last cell as anchors in the item's frame (query
+    from ``q_lo``, target from ``g_lo``), so the band of ``W`` cells is
+    centred on them, lerped between them and along the diagonal (slope
+    1/2, ``QOFF_NUM_HALF``) before the first and after the last."""
+    A = 2 * max(len(g.blocks) for g in guides)
+    a = np.zeros((len(guides), A), np.int32)
+    v = np.zeros((len(guides), A), np.int32)
+    mask = np.zeros((len(guides), A), bool)
+    for i, g in enumerate(guides):
+        bl = np.asarray(g.blocks, np.int64)
+        q, t, last = bl[:, 0] - g.q_lo, bl[:, 1] - g.g_lo, bl[:, 2] - 1
+        n = 2 * len(bl)
+        a[i, :n] = np.stack([q + t, q + t + 2 * last], axis=1).ravel()
+        v[i, :n] = np.stack([q, q + last], axis=1).ravel() - W // 2
+        mask[i, :n] = True
+    return make_qoff_knots(torch.from_numpy(a), torch.from_numpy(v), torch.from_numpy(mask),
+                           S, L, W, diag=0, num=QOFF_NUM_HALF).numpy()
+
+
+def _refine_secondaries(mapper: Mapper, batch: ReadBatch,
+                        guides: list[_Guide]) -> list[Optional[AlignmentPath]]:
+    """RefineAlignment (Blasr.cpp:799; its default guided mode, :833-916)
+    of a batch's secondaries that took the SDP chain's span: each chain's
+    query span against its genome window, with the read's phred stream,
+    in one guided DP call with arrows whose band of ``REFINE_BAND`` cells
+    follows the chain's blocks (``_chain_knots``), then
+    one walk with moves; one copy in, one fetch. Returns each guide's
+    path (its score the DP's), None where the DP found no alignment. The
+    DP is looked up on ``pipeline.mapper`` at the call, as the batch's is."""
+    params = mapper.params
+    genome = mapper.index.genome
+    W = REFINE_BAND
+    I = len(guides)
+    # room for half a band past the longest span, so the band's clip at
+    # L - W leaves the chain's last cells inside it
+    L = _round8(max(g.q_hi - g.q_lo for g in guides) + W // 2)
+    T = _round8(max(g.g_hi - g.g_lo for g in guides))
+    S = L + T - 1
+    knots = _chain_knots(guides, S, L, W)
+    NK = knots.shape[1]
+    qual_rows = host_qual(batch.qual, params)
+    query = np.full((I, L), 4, np.uint8)
+    target = np.full((I, T), 5, np.uint8)
+    bounds = np.zeros((3, I), np.int32)         # qlen, tlo, thi
+    qual = None
+    if qual_rows is not None:
+        neutral = QV_NEUTRAL_DUAL if qual_rows.dtype == np.int16 else QV_NEUTRAL
+        qual = np.full((I, L), neutral, qual_rows.dtype)
+    for i, g in enumerate(guides):
+        n_b = int(batch.lengths[g.row])
+        codes = batch.codes[g.row, :n_b]
+        if g.strand:
+            codes = revcomp_codes(codes)
+        n_q = g.q_hi - g.q_lo
+        query[i, :n_q] = codes[g.q_lo : g.q_hi]
+        if qual is not None:
+            row = qual_rows[g.row, :n_b]
+            qual[i, :n_q] = (row[::-1] if g.strand else row)[g.q_lo : g.q_hi]
+        target[i, : g.g_hi - g.g_lo] = genome[g.g_lo : g.g_hi]
+        bounds[0, i] = n_q
+        bounds[2, i] = g.g_hi - g.g_lo
+    # every input in one copy: the int32 parts first, so each part's byte
+    # offset is a multiple of its item size (L and T are multiples of 8)
+    parts = [bounds.reshape(-1).view(np.uint8), knots.reshape(-1).view(np.uint8),
+             query.reshape(-1), target.reshape(-1)]
+    if qual is not None:
+        parts.append(qual.reshape(-1).view(np.uint8))
+    buf = to_device(np.concatenate(parts), mapper.device, mapper.clock)
+    n_int = 4 * (3 + NK) * I
+    head = buf[:n_int].view(torch.int32)
+    query_t = buf[n_int : n_int + I * L].view(I, L)
+    target_t = buf[n_int + I * L : n_int + I * (L + T)].view(I, T)
+    qual_t = None
+    if qual is not None:
+        qual_t = buf[n_int + I * (L + T) :].view(torch.int16 if qual.dtype == np.int16
+                                               else torch.uint8).view(I, L)
+    knots_t = head[3 * I :].view(I, NK)
+    scores = AlignScores(
+        match=params.match_score, mismatch=params.mismatch_score,
+        insertion=params.insertion_score, deletion=params.deletion_score,
+        affine_open=params.affine_open, affine_extend=params.affine_extend,
+        matrix=params.score_matrix,
+    )
+    res = mapper_mod.banded_align(
+        query_t, head[:I], target_t, head[I : 2 * I], head[2 * I : 3 * I], None, qual_t,
+        knots=knots_t, scores=scores, with_traceback=True, band_width=W,
+    )
+    tb = walk_arrows_device(res.arrows, None, res.best_a, res.best_w, res.score,
+                            with_moves=True, qoff_knots=knots_t)
+    P = packed_width(S)
+    moves = pack_codes_rows(tb.moves_codes, tb.nops, P)
+    fields = torch.stack([res.score, tb.nops, tb.q_start, tb.q_end, tb.t_start, tb.t_end,
+                          tb.n_match, tb.n_mismatch, tb.n_ins, tb.n_del]).to(torch.int32)
+    host = to_host(torch.cat([fields.reshape(-1).view(torch.uint8), moves.reshape(-1)]),
+                   mapper.clock)
+    score, nops, qs, qe, ts, te, nm, nx, ni, nd = host[: 40 * I].view(np.int32).reshape(10, I)
+    mv = host[40 * I :].reshape(I, P)
+    _count(None, "refine_calls")
+    out: list[Optional[AlignmentPath]] = []
+    for i, g in enumerate(guides):
+        if score[i] >= 0 or nops[i] == 0:
+            out.append(None)
+            continue
+        shift = g.g_lo - g.t0
+        out.append(AlignmentPath(
+            q_start=g.q_lo + int(qs[i]), q_end=g.q_lo + int(qe[i]),
+            t_start=shift + int(ts[i]), t_end=shift + int(te[i]),
+            ops=None, packed=mv[i], packed_nops=int(nops[i]), score=int(score[i]),
+            n_match=int(nm[i]), n_mismatch=int(nx[i]), n_ins=int(ni[i]), n_del=int(nd[i]),
+        ))
+    return out
 
 
 def _finalize_batch(
     mapper: Mapper, batch: ReadBatch, device_res: WireResult, met: MappingMetrics
 ) -> tuple[list[AlignmentRecord], list[str]]:
     """Records of one batch: the secondary admission of rank >= 1 records
-    (``best_n > 1``), contig coordinates and the reporting filters
-    (maxScore, pct identity, alignment length, mapQV)."""
+    and the refinement of those that took the SDP chain's span (``best_n >
+    1``), contig coordinates and the reporting filters (maxScore, pct
+    identity, alignment length, mapQV)."""
     params = mapper.params
     seqdb = mapper.index.seqdb
     res = unpack_result(device_res, params.dp_candidates)
@@ -704,6 +885,8 @@ def _finalize_batch(
     B = batch.codes.shape[0]
     lens = seqdb.lengths()
     anchor_cache: dict = {}   # (batch row, strand) -> reference anchor list
+    kept: list[tuple[int, Optional[AlignmentPath], int]] = []  # (i2, path, score)
+    guides: dict[int, _Guide] = {}                             # kept's index -> guide
     for i2, path in enumerate(paths):
         b = i2 // params.best_n
         if batch.indices[b] < 0:
@@ -717,7 +900,23 @@ def _finalize_batch(
             met.secondary_seconds += (trace.end(mapper.clock) - t_adm) * 1e-9
             if admitted is None:
                 continue
-            path, score = admitted
+            path, score, guide = admitted
+            if guide is not None:
+                guides[len(kept)] = guide
+        kept.append((i2, path, score))
+    if guides:
+        t_ref = trace.begin(mapper.clock, "refine")
+        refined = _refine_secondaries(mapper, batch, list(guides.values()))
+        met.secondary_seconds += (trace.end(mapper.clock) - t_ref) * 1e-9
+        for k, path in zip(guides, refined):
+            # RemoveLowQuality after RefineAlignments (Blasr.cpp:2615-2618)
+            ok = path is not None and path.score <= params.max_score
+            _count(met, "refined" if ok else "cut_refined")
+            kept[k] = (kept[k][0], path, path.score) if ok else (kept[k][0], None, 0)
+    for k, (i2, path, score) in enumerate(kept):
+        if path is None:
+            continue
+        b = i2 // params.best_n
         if score > params.max_score:
             continue
         if path.pct_similarity < params.min_pct_similarity:
@@ -765,6 +964,7 @@ def _finalize_batch(
                 tend_fwd=te_f,
                 path=path,
                 read_index=int(batch.indices[b]),
+                refined=k in guides,
             )
         )
         mapped_reads.add(b)

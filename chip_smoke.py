@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (blasr_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py [--out FILE] [--only refine]
 
 Phases, each of which must pass:
   1. the card's name and power limit, torch and CUDA versions, and the
@@ -32,9 +32,17 @@ Phases, each of which must pass:
      the first walk of a real batch (the benchmark cell's flags, 1024
      reads of 769-1024 bp), each with the kernel's per-call and device
      times, the plain walk's time and its activity checks, and the bound
-     from the kernel's own time per dependent load; then the
-     microbenchmark's span gathers once on their own, with the launch
-     counts reset, for K2' launches;
+     from the kernel's own time per dependent load; the secondary
+     refinement's two kernels at the shapes of the benchmark cell
+     ecoli_sam.ccs_fastq (config 2's flags, CCS FASTQ reads, a batch of
+     its pool's longest reads with every counter reset just before it: the guided
+     W = 32 DP with the phred stream and knots from the SDP chains,
+     against the plain DP on the same card tensors and timed, and the
+     walk's knots instance against the plain walk, with the launches a
+     refinement costs and each refined record held to the plain
+     reference; ``--only refine`` runs this part after phase 1 alone);
+     then the microbenchmark's span gathers once on their own, with the
+     launch counts reset, for K2' launches;
   4. the FASTA bench corpus through run_mapping on the card at the bench
      operating point (a warm-up run, then one timed run with the per-stage
      clock on and every kernel launch counter reset just before it, in
@@ -68,9 +76,12 @@ Phases, each of which must pass:
      matrix prints the lines of run_mapping and runs the matrix kernel;
   9. config 3, -bestn 2 -m 5, on the FASTA corpus (bench.config3_params:
      two alignments per read, move strings on the wire, the secondaries
-     admitted on the host): one timed run with the per-stage clock;
-     every -m 5 line equal to the JAX package's read by read
-     (tools/jax_m5_reference.json), accuracy equal to phase 4's, the
+     admitted on the host, those on the SDP chain's span refined along
+     it): one timed run with the per-stage clock; every -m 5 line of a
+     record the refinement leaves alone equal to the JAX package's read by
+     read (tools/jax_m5_reference.json), each refined secondary held to
+     the plain reference (tests/refined_records.py), accuracy equal to
+     phase 4's, the
      host seconds of the secondary admission, the walk's launches (one
      of the walk kernel) and device ms on one batch with and without
      moves; the same records as SAM
@@ -178,6 +189,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -188,9 +200,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # each DP instance at the buckets its paths give it: the narrow bands (W = 32,
 # 64) up to 1536 bp and W = 32 up to 3328 at the bench point; the wide band
 # W = 128 at 1024 bp and W = 256 at 2048 bp and above (params.band_width_for);
-# the guided full band stays at 128 at every length. Every W of each mode
+# the guided full band stays at 128 at every length; the secondary
+# refinement's guided W = 32 runs at the longest chain of its batch (L up to
+# 3344, check_refine at the benchmark cell's own shapes). Every W of each mode
 # runs at least once; bucket pairs no path launches (W = 64 or 128 at 3328,
-# W = 256 at 1024 unguided, guided W = 32 at 3328) are left to the card-only
+# W = 256 at 1024 unguided) are left to the card-only
 # tests (tests/test_torch_cuda.py), which hold every instance at more shapes
 DP_SHAPES = [(32, 1024), (64, 1024), (128, 1024), (32, 3328), (256, 3328)]
 GUIDED_DP_SHAPES = [(32, 1024), (64, 1024), (128, 1024), (256, 1024), (128, 3328)]
@@ -280,6 +294,10 @@ WALK_CELL_FLAGS = ["-m", "4", "-bestn", "1", "-nCandidates", "10", "-maxReadLen"
                    "-batchSize", "1024"]
 WALK_BATCH_BUCKET = (768, 1024)   # read lengths of the real batch's bucket
 WALK_REPS = 10
+# the secondary refinement's kernels at the shapes of this benchmark cell
+# (config 2's flags, CCS FASTQ reads; check_refine) and the seed of its pool
+REFINE_CELL = "ecoli_sam.ccs_fastq"
+REFINE_SEED = 3190009001
 # H100 SXM peaks: HBM 3.35 TB/s; INT32 ALU 132 SMs x 64 lanes x 1.98 GHz
 # (Hopper architecture white paper), the rate of the DP's integer work
 HBM_BYTES_PER_S = 3.35e12
@@ -984,7 +1002,7 @@ def check_cli_sam_output(sam: str, genome_fa: str, reads, index) -> dict:
 
 
 def map_corpus(index, reads, params, warmup: bool = False, formatter=None,
-               sam_movie: str | None = None, fm=None) -> dict:
+               sam_movie: str | None = None, fm=None, keep_records: bool = False) -> dict:
     """One warm-up run when ``warmup`` is set, then one timed run with the
     per-stage clock on (it synchronises after every stage) and every launch
     counter reset just before it, read just after it. The run's records
@@ -993,7 +1011,9 @@ def map_corpus(index, reads, params, warmup: bool = False, formatter=None,
     ``write_sam`` (soft clipping, the genome, that movie name) into a
     StringIO, timed in the same window after the mapping's own wall
     (``sam_walls_s``, the write alone ``sam_write_s``), and keeps the SAM
-    text's lines. ``fm`` anchors every run through that FM index."""
+    text's lines. ``fm`` anchors every run through that FM index.
+    ``keep_records`` also returns the run's records and unmapped names
+    (``record_run``)."""
     import io
 
     import torch
@@ -1060,7 +1080,8 @@ def map_corpus(index, reads, params, warmup: bool = False, formatter=None,
             "escalated": met.escalated_reads, "metrics": met.to_dict(),
             "stage_seconds": stage, "peak_bytes": peak,
             "launches": counts, "dp_launches": by_shape,
-            "line_runs": [([(r.qname, formatter(r)) for r in records], unmapped)]}
+            "line_runs": [([(r.qname, formatter(r)) for r in records], unmapped)],
+            **({"record_run": (records, unmapped)} if keep_records else {})}
 
 
 def load_references() -> dict:
@@ -1082,13 +1103,16 @@ def load_references() -> dict:
     return refs
 
 
-def check_records(corpus: str, res: dict, ref: dict, reads_path: str, out_dir) -> dict:
+def check_records(corpus: str, res: dict, ref: dict, reads_path: str, out_dir,
+                  digests: str = "digests") -> dict:
     """Every timed run's lines (-m 4, or -m 5 for config 3) against the JAX
     package's, read by read: a read differs when the digest of its lines
     differs, when only one side has lines for it, or when only one side
     reports it unmapped. Writes the first timed run's lines to
     <out_dir>/<fmt>_<corpus>.<fmt> when ``out_dir`` is given. Fails above
-    RECORD_DIFF_LIMIT[corpus]."""
+    RECORD_DIFF_LIMIT[corpus]. ``digests`` names the reference's digests
+    (``untouched_digests``: the lines of the records the port does not
+    refine)."""
     ref = ref[corpus]
     fmt = RECORD_FORMAT[corpus]
     with open(reads_path, "rb") as f:
@@ -1102,8 +1126,8 @@ def check_records(corpus: str, res: dict, ref: dict, reads_path: str, out_dir) -
     counts = []
     for k, (lines, unmapped) in enumerate(runs):
         got = m4_digests(lines)
-        names = set(got) | set(ref["digests"])
-        diff = {n for n in names if got.get(n) != ref["digests"].get(n)}
+        names = set(got) | set(ref[digests])
+        diff = {n for n in names if got.get(n) != ref[digests].get(n)}
         diff |= set(unmapped) ^ set(ref["unmapped"])
         same_sorted = sorted_sha256([line for _, line in lines]) == ref["sha256_sorted"]
         counts.append(len(diff))
@@ -1118,14 +1142,16 @@ def check_records(corpus: str, res: dict, ref: dict, reads_path: str, out_dir) -
     return {"reads_differing": counts, "limit": RECORD_DIFF_LIMIT[corpus]}
 
 
-def check_sam_records(cell: str, res: dict, refs: dict, reads_path: str, out_dir) -> dict:
+def check_sam_records(cell: str, res: dict, refs: dict, reads_path: str, out_dir,
+                      digests: str = "digests") -> dict:
     """Every timed run's SAM lines against the JAX package's
     (tools/jax_sam_reference.json ``cell``), read by read: the digest of
     the @HD, @RG and @SQ lines must be equal, and a read differs when the
     digest of its lines differs or only one side has lines for it. Also the
     number of lines with FLAG 4 and with FLAG 256. Writes the first timed
     run's text to <out_dir>/sam_<cell>.sam when ``out_dir`` is given. Fails
-    above RECORD_DIFF_LIMIT[cell]."""
+    above RECORD_DIFF_LIMIT[cell]. ``digests`` names the reference's
+    digests, as ``check_records`` says."""
     ref = refs[cell]
     with open(reads_path, "rb") as f:
         md5 = hashlib.md5(f.read()).hexdigest()
@@ -1139,7 +1165,7 @@ def check_sam_records(cell: str, res: dict, refs: dict, reads_path: str, out_dir
     counts = []
     for k, lines in enumerate(runs):
         header, got = sam_digests(lines)
-        diff = {n for n in set(got) | set(ref["digests"]) if got.get(n) != ref["digests"].get(n)}
+        diff = {n for n in set(got) | set(ref[digests]) if got.get(n) != ref[digests].get(n)}
         body = [ln for ln in lines if not ln.startswith("@")]
         flags = (sam_flag_count(lines, 4), sam_flag_count(lines, 256))
         same_sorted = sorted_sha256(body) == ref["sha256_sorted"]
@@ -1417,6 +1443,143 @@ def check_walk(index, genome_fa: str, reads_fa: str) -> list:
         raise AssertionError("the real batch never reached the walk")
     return rows + batch
 
+def load_refined_records():
+    """``tests/refined_records.py``, by its path: a package named ``tests``
+    installed on the machine would shadow the repository's directory."""
+    spec = importlib.util.spec_from_file_location(
+        "refined_records", os.path.join(HERE, "tests", "refined_records.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_refine(latency_ns: float | None = None) -> dict:
+    """The secondary refinement's two kernels at the shapes of the benchmark
+    cell REFINE_CELL (config 2's flags on CCS FASTQ reads): the cell's
+    genome and index, the batch size's worth of the longest reads of a
+    pool made from REFINE_SEED (so the largest L), mapped once through
+    run_mapping with every counter reset just before it. The inputs of the
+    refinement's DP call (``mapper.banded_align`` with knots: W = 32, the
+    phred stream, knots from the SDP chains' corners, L and T from the
+    longest chain) are kept on the card; the guided DP kernel is then held
+    to ``banded_align_plain`` on them (score, best_a, best_w and every
+    arrow word equal), timed, and the walk's knots instance with moves and
+    without to ``walk_arrows_plain`` on its arrows (``compare_walk``).
+    Refinement costs one W = 32 guided launch a batch that has refined
+    records; the walk runs once a DP call; each refined record is held to
+    the plain reference (tests/refined_records.py)."""
+    import torch
+
+    from blasr_tpu_torch.ops import counters, dp_launch_counts, launch_counts, \
+        reset_launch_counts
+    from blasr_tpu_torch.ops.banded_align import banded_align_plain, qoff_from_knots
+    from blasr_tpu_torch.pipeline import mapper
+    from portbench.harness.cell import CellRun
+    from portbench.harness.spec import Bench
+
+    refined_records = load_refined_records()
+    if latency_ns is None:
+        latency_ns = walk_latency_ns(torch.device("cuda"))
+    # the cell maps at its own batch size (40 GiB at its peak): hand back
+    # what the earlier parts of phase 3 left cached
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    run = CellRun(Bench(REFINE_CELL), "cuda")
+    run.setup()
+    # the batch size's worth of the pool's longest reads, in pool order: the
+    # refinement's largest L and T (the 3 kb length class)
+    pool = [r for c in run.make_pool(REFINE_SEED) for r in c]
+    longest = sorted(range(len(pool)), key=lambda i: -len(pool[i]))[: run.params.batch_size]
+    part = [pool[i] for i in sorted(longest)]
+    log(f"refine: cell {REFINE_CELL} set up, {len(part)} reads of "
+        f"{min(len(r) for r in part)}-{max(len(r) for r in part)} bp ({time.time() - t0:.1f} s)")
+    dp = mapper.banded_align
+    calls = []
+
+    def kept(*args, **kw):
+        res = dp(*args, **kw)
+        if kw.get("knots") is not None:
+            calls.append((args, kw, res))
+        return res
+
+    met = run.MappingMetrics()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    mapper.banded_align = kept
+    try:
+        records, unmapped = run._map(part, met)
+        torch.cuda.synchronize()
+    finally:
+        mapper.banded_align = dp
+    launches, by_shape, sec = launch_counts(), dp_launch_counts(), counters()["secondary"]
+    log(f"refine: {len(records)} records, {len(unmapped)} unmapped; secondary path {sec}; "
+        f"launches {launches}; DP by (W, mode) {by_shape}")
+    if not calls or sec["refine_calls"] != len(calls) or sec["refined"] == 0:
+        raise AssertionError(f"the batch refined nothing on the card: {len(calls)} guided calls, "
+                             f"counters {sec}")
+    if by_shape.get("W32/guided", 0) != sec["refine_calls"] or \
+            launches["traceback_walk"] != launches["banded_dp"]:
+        raise AssertionError(f"refinement launches: W32/guided {by_shape.get('W32/guided')} for "
+                             f"{sec['refine_calls']} refine calls; walk {launches['traceback_walk']}"
+                             f" for {launches['banded_dp']} DP calls")
+    refined = [r for r in records if r.refined]
+    held = refined_records.check_records(refined, part, run.index)
+    log(f"refine: {len(refined)} refined records held to the plain reference: {held}")
+    if held["path_off"] or held["below"] or held["n"] != len(refined) or not refined:
+        raise AssertionError(f"refined records against the plain reference: {held}")
+    if max(args[0].shape[1] for args, _, _ in calls) < 2048:
+        raise AssertionError("the refinement never ran at L >= 2048 on the longest reads")
+
+    rows = []
+    for args, kw, res in calls:
+        I, L = args[0].shape
+        T = args[2].shape[1]
+        W = kw["band_width"]
+        S = L + T - 1
+        knots = kw["knots"]
+        qual = args[6]
+        mode = "none" if qual is None else ("single" if qual.dtype == torch.uint8 else "dual")
+        pargs = list(args)
+        pargs[5] = qoff_from_knots(knots, S)
+        t1 = time.perf_counter()
+        ref = banded_align_plain(*pargs, scores=kw["scores"], with_traceback=True, band_width=W)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        err = 0
+        for a, b in zip(res[:3], ref[:3]):
+            err = max(err, int((a.long() - b.long()).abs().max()))
+        ga = res.arrows.view(torch.int16).to(torch.int32) & 0xFFFF
+        ra = ref.arrows.view(torch.int16).to(torch.int32) & 0xFFFF
+        err = max(err, int((ga - ra).abs().max()))
+        del ga, ra, ref
+
+        def call():
+            dp(*args, **kw)
+
+        ms = cuda_ms(call, reps=5)
+        dev_ms = graph_ms(call, reps=5)
+        b_ms, b_by = dp_bound(I, L, T, W, mode, guided=True)
+        row = {"W": W, "L": L, "T": T, "I": I, "S": S, "mode": mode, "max_abs_err": err,
+               "ms": ms, "device_ms": dev_ms, "ns_per_step": dev_ms * 1e6 / S,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "items_aligned": int((res.score < 0).sum())}
+        log(f"refine dp banded_dp_kernel<W={W}, quality={mode}, guided=True> I={I} L={L} T={T}: "
+            f"max_abs_err={err} kernel {ms:.3f} ms (device {dev_ms:.3f} ms, "
+            f"{row['ns_per_step']:.1f} ns per step of {S}) plain {plain_ms:.1f} ms bound "
+            f"{b_ms:.4f} ms ({b_by}); {row['items_aligned']} items aligned")
+        if err != 0:
+            raise AssertionError(f"the guided DP kernel disagrees with the plain version on the "
+                                 f"refinement's inputs (I={I} L={L} T={T})")
+        row["walk"] = compare_walk(f"refine I={I} L={L} W={W}",
+                                   (res.arrows, None, res.best_a, res.best_w, res.score),
+                                   dict(qoff_knots=knots), latency_ns)
+        rows.append(row)
+    del calls, run, args, kw, res, pargs
+    torch.cuda.empty_cache()
+    return {"cell": REFINE_CELL, "seed": REFINE_SEED, "reads": len(part), "counters": sec,
+            "launches": launches, "dp_launches": by_shape, "held": held, "calls": rows}
+
+
 def write_fastq_reads(path: str, reads) -> None:
     from blasr_tpu_torch.io.fastq import write_fastq
 
@@ -1534,35 +1697,65 @@ def check_matrix(genome_fa: str, reads, index, cli: dict) -> dict:
 def check_config3(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_dir,
                   fasta: dict, cli: dict) -> dict:
     """Config 3 (-bestn 2 -m 5) on the FASTA corpus: one timed run with
-    the per-stage clock through run_mapping; every -m 5 line against
-    the JAX package's read by read; accuracy equal to the -m 4 run's and to
-    the JAX package's; every kernel launched; the walk of one batch of
-    513-768 bp reads with and without moves; then the CLI with -bestn 2
-    -m 5 on phase 4's 256 reads prints run_mapping's lines."""
+    the per-stage clock through run_mapping; every -m 5 and SAM line of a
+    record the refinement does not touch against the JAX package's read by
+    read, each refined secondary held to the plain reference
+    (``tests/refined_records.check_records``: CIGAR, SEQ and AS consistent,
+    no better alignment of its spans); accuracy of the untouched records
+    equal to the -m 4 run's and to the JAX package's; every kernel
+    launched; the walk of one batch of 513-768 bp reads with and without
+    moves; then the CLI with -bestn 2 -m 5 on phase 4's 256 reads prints
+    run_mapping's lines."""
+    import io
+
     import torch
 
     from blasr_tpu_torch import bench
-    from blasr_tpu_torch.ops import dp_launch_counts, reset_launch_counts
+    from blasr_tpu_torch.ops import counters, dp_launch_counts, reset_launch_counts
+    from blasr_tpu_torch.output.sam_writer import write_sam
     from blasr_tpu_torch.output.verbose import format_m5
     from blasr_tpu_torch.pipeline.runner import run_mapping
 
+    refined_records = load_refined_records()
     params = bench.config3_params()
     by_name = {r.name: r for r in reads}
     log("config 3 (-bestn 2 -m 5) on the FASTA corpus through run_mapping:")
     res = map_corpus(index, reads, params,
                      formatter=lambda r: format_m5(r, by_name[r.qname], index),
-                     sam_movie=os.path.basename(reads_fa))
-    res["records_vs_jax"] = check_records("config3", res, refs, reads_fa, out_dir)
-    res["sam_vs_jax"] = check_sam_records("config3_sam", res, refs, reads_fa, out_dir)
-    if res["sam_vs_jax"]["secondaries"] != refs["config3_sam"]["secondaries"]:
-        raise AssertionError(f"config 3's SAM has {res['sam_vs_jax']['secondaries']} FLAG 256 "
-                             f"lines, the JAX package's {refs['config3_sam']['secondaries']}")
+                     sam_movie=os.path.basename(reads_fa), keep_records=True)
+    refined_counts = counters()["secondary"]
+    records, unmapped = res.pop("record_run")
+    keep = [r for r in records if not r.refined]
+    refined = [r for r in records if r.refined]
+    buf = io.StringIO()
+    write_sam(keep, reads, index.seqdb, buf, clipping="soft", unmapped=unmapped,
+              movie_name=os.path.basename(reads_fa), genome=index.genome)
+    res["line_runs"] = [([(r.qname, format_m5(r, by_name[r.qname], index)) for r in keep],
+                         unmapped)]
+    res["sam_runs"] = [buf.getvalue().splitlines()]
+    res["records_vs_jax"] = check_records("config3", res, refs, reads_fa, out_dir,
+                                          digests="untouched_digests")
+    res["sam_vs_jax"] = check_sam_records("config3_sam", res, refs, reads_fa, out_dir,
+                                          digests="untouched_digests")
+    if res["sam_vs_jax"]["secondaries"] != refs["config3_sam"]["untouched_secondaries"]:
+        raise AssertionError(
+            f"config 3's SAM of untouched records has {res['sam_vs_jax']['secondaries']} FLAG "
+            f"256 lines, the JAX package's {refs['config3_sam']['untouched_secondaries']}")
     ref = refs["config3"]
-    acc = res["accuracy_true_locus"]
+    strays = {r.qname for r in refined} - set(ref["sdp_reads"])
+    held = refined_records.check_records(refined, reads, index)
+    log(f"config 3: {len(refined)} refined secondaries (the JAX package emits "
+        f"{ref['sdp_records']} from SDP blocks; counters {refined_counts}), held to the plain "
+        f"reference: {held}")
+    if strays or held["path_off"] or held["below"] or held["n"] != len(refined):
+        raise AssertionError(f"config 3's refined secondaries: {held}, on reads the JAX package "
+                             f"emits no SDP record for: {sorted(strays)[:5]}")
+    res["refined"] = dict(held, counters=refined_counts)
+    acc = bench.accuracy_true_locus(keep, reads)
     if acc != fasta["accuracy_true_locus"] or acc != ref["accuracy_true_locus"]:
-        raise AssertionError(f"config 3 accuracy_true_locus {acc:.4f}: the -m 4 run's is "
-                             f"{fasta['accuracy_true_locus']:.4f}, the JAX package's "
-                             f"{ref['accuracy_true_locus']:.4f}")
+        raise AssertionError(f"config 3 accuracy_true_locus {acc:.4f} (untouched records): the "
+                             f"-m 4 run's is {fasta['accuracy_true_locus']:.4f}, the JAX "
+                             f"package's {ref['accuracy_true_locus']:.4f}")
     missing = [k for k, v in res["launches"].items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the config 3 path: {missing}")
@@ -2670,7 +2863,7 @@ def free_port() -> int:
         return so.getsockname()[1]
 
 
-def run(out_path: str | None) -> int:
+def run(out_path: str | None, only: str | None = None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2710,6 +2903,15 @@ def run(out_path: str | None) -> int:
         _build.library_path(_build.HOST_SOURCE), HERE) + ")"
         if native.available() else "numpy prefix doubling (no g++: the plain version)")
     log(f"host helpers: {index_path}")
+    if only == "refine":
+        refine = check_refine()
+        if out_path:
+            os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+            with open(out_path, "w") as f:
+                json.dump({"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+                           "refine": refine, "seconds": time.time() - t_start}, f, indent=1)
+        print(json.dumps({"ok": True, "only": only}), flush=True)
+        return 0
 
     # ---- phase 2: corpora and index ----
     mark("2")
@@ -2742,6 +2944,7 @@ def run(out_path: str | None) -> int:
     matrix_rows = check_dp_matrix(windows)
     del windows
     walk_rows = check_walk(index, genome_fa, reads_fa)
+    refine = check_refine()
     t0 = time.time()
     di = make_device_index(index, params, "cuda")
     torch.cuda.synchronize()
@@ -2969,7 +3172,7 @@ def run(out_path: str | None) -> int:
             json.dump({
                 "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                 "host_helpers": index_path, "dp": dp_rows, "dp_guided": guided_rows,
-                "walk": walk_rows,
+                "walk": walk_rows, "refine": refine,
                 "dp_matrix": matrix_rows, "gathers": g_rows, "micro_dma": micro_rows,
                 "micro_dma_launches": micro_launches,
                 "fasta": fasta, "cli": {k: v for k, v in cli.items() if k != "m4"},
@@ -2993,13 +3196,16 @@ def run(out_path: str | None) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write every measurement as JSON here")
+    ap.add_argument("--only", choices=["refine"], default=None,
+                    help="run phase 1 and one part of phase 3 alone: 'refine', the "
+                         "secondary refinement's kernels (check_refine)")
     args = ap.parse_args()
     try:
         import torch  # noqa: F401
     except ImportError:
         print("chip_smoke: PyTorch is not installed", file=sys.stderr)
         return 1
-    return run(args.out)
+    return run(args.out, args.only)
 
 
 if __name__ == "__main__":

@@ -742,6 +742,71 @@ def test_sam_lines_on_the_card_equal_cpu(dev, best_n):
     assert out["cpu"][1 if best_n == 1 else 2] > 0
 
 
+def test_secondary_refinement_on_the_card_equals_cpu(dev):
+    """BLASR reference config 2 (``-sam -clipping soft -bestn 10
+    -nCandidates 10``, at this genome's seed length) on FASTQ reads over
+    two planted repeat copies, each with a 150-base insertion the narrow
+    band cannot cross: the secondaries on the copies take the SDP chain's
+    span and are refined along it. The card's SAM text and records equal
+    the CPU run's, tolerance 0, and the card's refinement costs two
+    launches a batch that has such records: one guided DP (``W32/guided``)
+    and one walk."""
+    import io
+
+    from blasr_tpu_torch import ops
+    from blasr_tpu_torch.cli.args import build_arg_parser, params_from_args
+    from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+    from blasr_tpu_torch.io.batching import Read
+    from blasr_tpu_torch.io.seqdb import SeqDB
+    from blasr_tpu_torch.output.sam_writer import write_sam
+    from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
+
+    rng = np.random.default_rng(23)
+    G = 100_000
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    for src, dst, ln in ((5_000, 70_000, 1200), (20_000, 50_000, 1000)):
+        seg = genome[src : src + ln].copy()
+        m = rng.random(ln) < 0.05
+        seg[m] = (seg[m] + 1) % 4
+        seg = np.concatenate([seg[: ln // 2], rng.integers(0, 4, 150).astype(np.uint8),
+                              seg[ln // 2 :]])
+        genome[dst : dst + len(seg)] = seg
+    seqdb = SeqDB(["chrA", "chrB"], np.array([0, 40_000, G]), ["0" * 32] * 2)
+    index = build_index_from_arrays(genome, seqdb, k=10)
+    reads = []
+    for i in range(8):
+        s = (5_000, 20_000)[i % 2] + int(rng.integers(0, 200))
+        r = genome[s : s + int(rng.integers(700, 1000))].copy()
+        r[::23] = (r[::23] + 1) % 4
+        if i % 3 == 1:
+            r = np.where(r < 4, 3 - r, r)[::-1].copy()
+        reads.append(Read(f"r{i}", r, rng.integers(10, 41, len(r)).astype(np.uint8), i))
+    args = build_arg_parser().parse_args(
+        ["r.fastq", "g.fa", "-sam", "-clipping", "soft", "-bestn", "10", "-nCandidates", "10",
+         "-maxReadLen", "1024", "-batchSize", "8", "-minMatch", "10"])
+    params = params_from_args(args)
+    out = {}
+    for device in ("cpu", "cuda"):
+        ops.reset_launch_counts()
+        met = MappingMetrics()
+        recs, unm = run_mapping(index, reads, params, device=device, metrics=met)
+        buf = io.StringIO()
+        write_sam(recs, reads, seqdb, buf, clipping="soft", unmapped=unm,
+                  movie_name="reads.fastq", genome=genome)
+        out[device] = (buf.getvalue(), [(r.qname, r.score, r.refined) for r in recs],
+                       ops.counters()["secondary"])
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches, by_shape, batches = ops.launch_counts(), ops.dp_launch_counts(), met.n_batches
+            escalated = met.escalated_reads
+    assert out["cuda"] == out["cpu"]
+    counts = out["cuda"][2]
+    assert counts["refined"] >= 1 and counts["refine_calls"] == 1 and escalated == 0
+    # one batch: its DP and walk, then the refinement's guided DP and walk
+    assert by_shape["W32/guided"] == counts["refine_calls"]
+    assert launches["banded_dp"] == launches["traceback_walk"] == batches + counts["refine_calls"]
+
+
 @pytest.mark.parametrize("stride", [1, 4])
 def test_fm_anchors_on_the_card_equal_cpu(dev, stride):
     """FM backward search, locate and anchor selection: the card's four

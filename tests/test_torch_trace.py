@@ -239,9 +239,13 @@ def test_reset_zeroes_the_new_counters(corpus):
     run_mapping(index, reads[:8], PARAMS, device="cpu")
     got = ops.counters()
     assert got["max_arrow_bytes"] > 0 and all(v > 0 for v in got["syncs"].values())
+    ops.SECONDARY["checked"] += 1
     ops.reset_launch_counts()
     got = ops.counters()
     assert got["max_arrow_bytes"] == 0 and set(got["syncs"].values()) == {0}
+    assert set(got["secondary"]) == {"checked", "gated", "cut_sdp", "replaced", "refined",
+                                     "cut_refined", "refine_calls"}
+    assert set(got["secondary"].values()) == {0}
 
 
 def test_cli_metrics_file_holds_spans_and_counters(corpus, tmp_path):

@@ -17,7 +17,11 @@ each read's -m 5 lines keyed by read name (``chip_smoke.m4_digests``), the
 unmapped read names, the record count, the secondaries (records beyond the
 first of their read), ``accuracy_true_locus`` of the best records
 (``blasr_tpu_torch.bench``), the sha256 of all lines sorted and the md5 of
-the reads file. ``chip_smoke.py`` holds the card's lines to it read by read.
+the reads file; then the secondaries the JAX package emits from their SDP
+chain's blocks (``sdp_records``, their reads ``sdp_reads``), which the port
+refines along the chain instead, and the digests of each read's lines
+without them (``untouched_digests``). ``chip_smoke.py`` holds the card's
+lines to it read by read, its refined records to the plain reference.
 ``--lines`` also writes the lines, to diff against the card's. About a
 minute; prints one JSON line.
 """
@@ -64,10 +68,14 @@ def main() -> int:
     index = load_index(GENOME_FA, k=14)
     reads = read_records(READS_FA)
     by_name = {r.name: r for r in reads}
+    params = config3_params()
     t0 = time.time()
-    records, unmapped = runner.run_mapping(index, reads, config3_params())
+    records, unmapped = runner.run_mapping(index, reads, params)
     seconds = time.time() - t0
     lines = [(r.qname, format_m5(r, by_name[r.qname], index)) for r in records]
+    # a secondary on its SDP chain's blocks (a longer read's records are
+    # stitched from segments, and carry ops too)
+    sdp = [r.path.packed is None and r.qlength <= params.max_read_len for r in records]
     with open(READS_FA, "rb") as f:
         md5 = hashlib.md5(f.read()).hexdigest()
     ref = {
@@ -77,6 +85,8 @@ def main() -> int:
         "unmapped": sorted(unmapped),
         "sha256_sorted": sorted_sha256([line for _, line in lines]),
         "digests": m4_digests(lines),
+        "sdp_records": sum(sdp), "sdp_reads": sorted({r.qname for r, x in zip(records, sdp) if x}),
+        "untouched_digests": m4_digests([ln for ln, x in zip(lines, sdp) if not x]),
     }
     if args.lines:
         with open(args.lines, "w") as f:

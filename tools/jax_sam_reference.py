@@ -26,12 +26,17 @@ the JAX package's ``MappingParams``. The output (default
 (``chip_smoke.sam_digests``), the number of alignment lines, of those with
 FLAG 4 and with FLAG 256, the unmapped read names, ``accuracy_true_locus``
 of the records (``blasr_tpu_torch.bench``), the sha256 of all alignment
-lines sorted and the md5 of the reads file. ``chip_smoke.py`` holds the
-card's SAM lines to it read by read. ``--lines-dir`` also writes each
-cell's SAM text as ``<DIR>/<cell>.sam``. Prints one JSON line per cell.
-The committed JSON took 2 min 37 s of wall on an 8-core x86 CPU, the bench
-genome, the CLR corpus and the k=14 index written first (mapping: config2
-68.6 s, config3_sam 46.4 s, each line's ``seconds_cpu_host_clock``).
+lines sorted and the md5 of the reads file; then the reads with a
+secondary the JAX package emits from its SDP chain's blocks (``sdp_reads``),
+which the port refines along the chain instead, and the digests of each
+read's lines written without those records (``untouched_digests``, FLAG 256
+lines ``untouched_secondaries``). ``chip_smoke.py`` holds the card's SAM
+lines to it read by read, its refined records to the plain reference.
+``--lines-dir`` also writes each cell's SAM text as ``<DIR>/<cell>.sam``.
+Prints one JSON line per cell. Mapping the committed JSON's cells took
+90.2 s (config2) and 32.0 s (config3_sam) on an x86 CPU, each line's
+``seconds_cpu_host_clock``, the bench genome, the CLR corpus and the k=14
+index written first.
 """
 
 from __future__ import annotations
@@ -84,8 +89,9 @@ def main() -> int:
     out = {}
     for cell, path in (("config2", reads_fq), ("config3_sam", READS_FA)):
         reads = read_records(path)
+        params = cell_params(cell)
         t0 = time.time()
-        records, unmapped = runner.run_mapping(index, reads, cell_params(cell))
+        records, unmapped = runner.run_mapping(index, reads, params)
         seconds = time.time() - t0
         buf = io.StringIO()
         write_sam(records, reads, index.seqdb, buf, clipping="soft", unmapped=unmapped,
@@ -96,6 +102,14 @@ def main() -> int:
         header_sha, digests = sam_digests(lines)
         with open(path, "rb") as f:
             md5 = hashlib.md5(f.read()).hexdigest()
+        # a secondary on its SDP chain's blocks (a longer read's records are
+        # stitched from segments, and carry ops too)
+        sdp = [r.path.packed is None and r.qlength <= params.max_read_len for r in records]
+        keep = [r for r, x in zip(records, sdp) if not x]
+        ubuf = io.StringIO()
+        write_sam(keep, reads, index.seqdb, ubuf, clipping="soft", unmapped=unmapped,
+                  movie_name=os.path.basename(path), genome=index.genome)
+        ulines = ubuf.getvalue().splitlines()
         out[cell] = {
             "reads_file": os.path.relpath(path, REPO), "reads_md5": md5, "reads": len(reads),
             "movie_name": os.path.basename(path), "header_sha256": header_sha,
@@ -103,6 +117,9 @@ def main() -> int:
             "secondaries": sam_flag_count(lines, 256), "unmapped": sorted(unmapped),
             "accuracy_true_locus": accuracy_true_locus(records, reads),
             "sha256_sorted": sorted_sha256(body), "digests": digests,
+            "sdp_reads": sorted({r.qname for r, x in zip(records, sdp) if x}),
+            "untouched_digests": sam_digests(ulines)[1],
+            "untouched_secondaries": sam_flag_count(ulines, 256),
         }
         if args.lines_dir:
             os.makedirs(args.lines_dir, exist_ok=True)
