@@ -7,6 +7,11 @@ dense global aligner ``global_align`` (``csrc/host_native.cpp``, built by
 ``g++`` through ``ops/_build.py`` at first use). Each function runs the C++ code when the library is built and
 its plain version, which gives the same result, when no ``g++`` is
 present; each returns its result, never None.
+
+The port's own additions: the -bestn secondary admission's
+``sdp_interval_align`` and ``reference_anchor_list``, whose plain versions
+are ``pipeline/secondary_refine.py``'s functions of those names
+(``sdp_interval_align_plain``, ``reference_anchor_list_plain`` here).
 """
 
 from __future__ import annotations
@@ -18,6 +23,10 @@ import numpy as np
 
 from blasr_tpu_torch.core.encode import seq_to_codes
 from blasr_tpu_torch.ops import _build
+from blasr_tpu_torch.pipeline.secondary_refine import (
+    reference_anchor_list as reference_anchor_list_plain,
+    sdp_interval_align as sdp_interval_align_plain,
+)
 
 
 def available() -> bool:
@@ -26,7 +35,7 @@ def available() -> bool:
 
 
 def _ptr(a: np.ndarray) -> int:
-    return a.ctypes.data_as(ctypes.c_void_p).value or 0
+    return a.ctypes.data
 
 
 def sais(codes: np.ndarray) -> np.ndarray:
@@ -270,3 +279,81 @@ def global_align(
     n = lib.bn_global_align(_ptr(q), len(q), _ptr(t), len(t), match, mismatch, nscore, ins,
                             dele, _ptr(ops), _ptr(score))
     return ops[:n].copy(), int(score[0])
+
+
+def sdp_interval_align(
+    q_codes: np.ndarray, t_codes: np.ndarray, *,
+    word: int = 11, sdp_ins: int = 5, sdp_del: int = 10, match: int = -5,
+    mismatch: int = 6, n_score: int = 0, ins: int = 5, dele: int = 5,
+    indel_rate: float = 0.9, prefix_len: int = 50, recurse: int = 2,
+    no_recurse_under: int = 1000, cap: int = 0, affine: bool = True,
+    affine_open: int = 50, affine_extend: int = 0, _align_type: str = "local",
+) -> tuple[int, list]:
+    """SDPAlign (Local, detailed) of ``q_codes`` against the window
+    ``t_codes``: (score, blocks [[q, t, len], ...]), (0, []) when no
+    fragment chains; ``sdp_interval_align_plain`` with the same keywords."""
+    lib = _build.load_host_library()
+    if lib is None:
+        return sdp_interval_align_plain(
+            q_codes, t_codes, word=word, sdp_ins=sdp_ins, sdp_del=sdp_del, match=match,
+            mismatch=mismatch, n_score=n_score, ins=ins, dele=dele, indel_rate=indel_rate,
+            prefix_len=prefix_len, recurse=recurse, no_recurse_under=no_recurse_under,
+            cap=cap, affine=affine, affine_open=affine_open, affine_extend=affine_extend,
+            _align_type=_align_type)
+    q = np.ascontiguousarray(q_codes, dtype=np.uint8)
+    t = np.ascontiguousarray(t_codes, dtype=np.uint8)
+    score = np.zeros(1, np.int64)
+    args = (_ptr(q), len(q), _ptr(t), len(t), word, sdp_ins, sdp_del, match, mismatch,
+            n_score, ins, dele, float(indel_rate), prefix_len, recurse, no_recurse_under,
+            cap, int(bool(affine)), affine_open, affine_extend, int(_align_type == "local"))
+    blocks = np.empty((len(q) + 64, 3), np.int64)
+    n = lib.bn_sdp_interval_align(*args, _ptr(blocks), len(blocks), _ptr(score))
+    if n < 0:                                   # more blocks than the buffer holds
+        blocks = np.empty((-n, 3), np.int64)
+        n = lib.bn_sdp_interval_align(*args, _ptr(blocks), len(blocks), _ptr(score))
+    return int(score[0]), blocks[:n].tolist()
+
+
+def reference_anchor_list(
+    q_codes: np.ndarray, genome: np.ndarray, sa: np.ndarray, sa_kmers: np.ndarray, k: int, *,
+    min_match: int = 14, trim: int | None = None, max_ext: int = 256,
+    max_range: int = 10_000, max_anchors_per_position: int = 1000, length_deficit: int = 5,
+    lut: np.ndarray | None = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The reference's anchor list of one read orientation, (q, t, len)
+    int64 arrays; ``reference_anchor_list_plain`` with the same keywords.
+    ``lut``, the table of ``GenomeIndex.lut()`` of the index that ``sa`` and
+    ``sa_kmers`` belong to, narrows each search to its key prefix's rows
+    and leaves the result as it is."""
+    lib = _build.load_host_library()
+    if lib is None:
+        return reference_anchor_list_plain(
+            q_codes, genome, sa, sa_kmers, k, min_match=min_match, trim=trim,
+            max_ext=max_ext, max_range=max_range,
+            max_anchors_per_position=max_anchors_per_position, length_deficit=length_deficit)
+    q = np.ascontiguousarray(q_codes, dtype=np.uint8)
+    genome = np.ascontiguousarray(genome, dtype=np.uint8)
+    # the index's own int32 or int64 arrays, read in place
+    sa, sa_kmers = (np.ascontiguousarray(a, a.dtype if a.dtype in (np.int32, np.int64)
+                                         else np.int64) for a in (sa, sa_kmers))
+    if len(sa) < len(sa_kmers):
+        raise ValueError(f"a suffix array of {len(sa)} rows for {len(sa_kmers)} k-mers")
+    if trim is None:
+        trim = min_match + 1
+    lut_bits = 0
+    if lut is not None:
+        lut = np.ascontiguousarray(lut, np.int32)
+        lut_bits = (len(lut) - 1).bit_length() - 1
+        if len(lut) != (1 << lut_bits) + 1 or lut_bits > 2 * k:
+            raise ValueError(f"a key-prefix table of {len(lut)} entries for k = {k}")
+    args = (_ptr(q), len(q), _ptr(genome), len(genome), _ptr(sa), int(sa.dtype == np.int64),
+            _ptr(sa_kmers), int(sa_kmers.dtype == np.int64), len(sa_kmers), k, min_match,
+            trim, max_ext, max_range, max_anchors_per_position, length_deficit,
+            None if lut is None else _ptr(lut), lut_bits)
+    cap = 4 * len(q) + 64
+    while True:
+        out = np.empty((3, cap), np.int64)
+        n = lib.bn_reference_anchor_list(*args, _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), cap)
+        if n >= 0:
+            return out[0, :n].copy(), out[1, :n].copy(), out[2, :n].copy()
+        cap = -n

@@ -23,10 +23,13 @@ SYNC_SITES: dict = {}
 # checked, dropped by the min_interval gate, dropped by the cut before the
 # refinement (no SDP chain, or an SDP score above -maxScore), that took the
 # SDP chain's span, that the refinement aligned, dropped by -maxScore on
-# the refined score (or left with no alignment), and the refinement's DP
-# calls (one a batch that has such records)
+# the refined score (or left with no alignment), the refinement's DP calls
+# (one a batch that has such records), and the checked records whose
+# admission ran in C++ (``native``; equal to ``checked`` unless the host
+# library could not be built)
 SECONDARY = dict.fromkeys(
-    ("checked", "gated", "cut_sdp", "replaced", "refined", "cut_refined", "refine_calls"), 0)
+    ("checked", "gated", "cut_sdp", "replaced", "refined", "cut_refined", "refine_calls",
+     "native"), 0)
 
 
 def count_secondary(name: str, n: int = 1) -> None:

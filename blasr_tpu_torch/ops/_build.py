@@ -78,6 +78,16 @@ _SIGNATURES = {
                        ctypes.c_char, _P, _LL, _P], ctypes.c_int64),
     # q qn t tn match mismatch nscore ins del ops_out score_out
     "bn_global_align": ([_P, _LL, _P, _LL, _I, _I, _I, _I, _I, _P, _P], ctypes.c_int64),
+    # q qn t tn word sdp_ins sdp_del match mismatch n_score ins del indel_rate
+    # prefix_len recurse no_recurse_under cap affine affine_open affine_extend
+    # local blocks_out max_blocks score_out
+    "bn_sdp_interval_align": ([_P, _LL, _P, _LL, *[_LL] * 8, ctypes.c_double, *[_LL] * 8,
+                               _P, _LL, _P], ctypes.c_int64),
+    # q n genome G sa sa_is64 sa_kmers kmers_is64 nsa k min_match trim max_ext
+    # max_range max_anchors_per_position length_deficit lut lut_bits q_out t_out
+    # l_out cap
+    "bn_reference_anchor_list": ([_P, _LL, _P, _LL, _P, _LL, _P, *[_LL] * 9, _P, _LL, _P, _P,
+                                  _P, _LL], ctypes.c_int64),
 }
 
 _lock = threading.Lock()

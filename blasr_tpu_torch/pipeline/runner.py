@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from blasr_tpu_torch import native
 from blasr_tpu_torch.index.artifacts import GenomeIndex
 from blasr_tpu_torch.io.batching import Read, ReadBatch, batch_reads
 from blasr_tpu_torch.ops import count_secondary
@@ -64,12 +65,7 @@ from blasr_tpu_torch.pipeline.mapper import (
     host_qual,
     unpack_result,
 )
-from blasr_tpu_torch.pipeline.secondary_refine import (
-    reference_anchor_list,
-    revcomp_codes,
-    sdp_interval_align,
-    sum_anchors_window,
-)
+from blasr_tpu_torch.pipeline.secondary_refine import revcomp_codes, sum_anchors_window
 from blasr_tpu_torch.pipeline.trace import StageClock
 from blasr_tpu_torch.pipeline.traceback import AlignmentPath
 
@@ -629,6 +625,15 @@ def _count(met: Optional[MappingMetrics], name: str) -> None:
         setattr(met, field, getattr(met, field) + 1)
 
 
+def _host_lut(index: GenomeIndex) -> np.ndarray:
+    """``index.lut()``'s key-prefix table, made once per index: the C++
+    anchor list's searches start from it."""
+    lut = getattr(index, "_host_lut", None)
+    if lut is None:
+        lut = index._host_lut = index.lut()[0]
+    return lut
+
+
 def _admit_secondary(
     mapper: Mapper, batch: ReadBatch, res, b: int, i2: int,
     path: AlignmentPath, anchor_cache: dict, met: MappingMetrics,
@@ -643,12 +648,18 @@ def _admit_secondary(
     ``max_score``. Else (path, score, None) with the DP's path and score
     when the SDP chain covers the same span (0.9 overlap on both axes), or
     (None, SDP score, guide) when the record takes the chain's span: the
-    batch's refinement aligns it along the chain (``_refine_secondaries``)."""
+    batch's refinement aligns it along the chain (``_refine_secondaries``).
+    Both SDP passes and the anchor list run in C++ (``native``) when the
+    host library is built, and are counted ``native`` then."""
     params = mapper.params
     index = mapper.index
     seqdb = index.seqdb
     genome = index.genome
     _count(met, "checked")
+    use_native = native.available()
+    if use_native:
+        _count(met, "native")
+    sdp_align = native.sdp_interval_align if use_native else native.sdp_interval_align_plain
     st = int(res.sel_strand[i2])
     n_b = int(batch.lengths[b])
     qc = batch.codes[b, :n_b]
@@ -664,8 +675,7 @@ def _admit_secondary(
     g_hi_ch = int(res.cand_thi[b, cd_i])
     g_mid = (g_lo_ch + g_hi_ch) // 2
     ci_w = int(seqdb.contig_of(min(max(g_mid, 0), seqdb.total_length - 1)))
-    c_lo = int(seqdb.starts[ci_w])
-    c_hi = c_lo + int(seqdb.lengths()[ci_w])
+    c_lo, c_hi = int(seqdb.starts[ci_w]), int(seqdb.starts[ci_w + 1])
     w0_lo = max(g_lo_ch - 64, c_lo)
     w0_hi = min(g_hi_ch + 64, c_hi)
     sdp_kw = dict(
@@ -676,7 +686,7 @@ def _admit_secondary(
         affine_open=params.affine_open,
         affine_extend=params.affine_extend,
     )
-    _, b0 = sdp_interval_align(qc, genome[w0_lo:w0_hi], prefix_len=0, **sdp_kw)
+    _, b0 = sdp_align(qc, genome[w0_lo:w0_hi], prefix_len=0, **sdp_kw)
     if not b0:
         _count(met, "cut_sdp")
         return None
@@ -696,10 +706,12 @@ def _admit_secondary(
         ws_hi = min(max(t_hi0, t_lo0 + L_int), c_hi)
         akey = (b, st)
         if akey not in anchor_cache:
-            anchor_cache[akey] = reference_anchor_list(
-                qc, genome, index.sa, index.sa_kmers, index.k,
-                min_match=params.min_match_length,
-            )
+            args = (qc, genome, index.sa, index.sa_kmers, index.k)
+            anchor_cache[akey] = (
+                native.reference_anchor_list(*args, min_match=params.min_match_length,
+                                             lut=_host_lut(index))
+                if use_native else
+                native.reference_anchor_list_plain(*args, min_match=params.min_match_length))
         _aq, at_r, al_r = anchor_cache[akey]
         if sum_anchors_window(at_r, al_r, ws_lo, ws_hi) <= params.min_interval:
             _count(met, "gated")
@@ -710,7 +722,7 @@ def _admit_secondary(
     # sdpPrefix=50)
     w_lo = max(int(t_lo0 - q_lo0 * 1.3), c_lo)
     w_hi = min(int(t_hi0 + (n_b - q_hi0) * 1.3), c_hi)
-    sdp_sc, sdp_blocks = sdp_interval_align(qc, genome[w_lo:w_hi], **sdp_kw)
+    sdp_sc, sdp_blocks = sdp_align(qc, genome[w_lo:w_hi], **sdp_kw)
     if not sdp_blocks or sdp_sc > params.max_score:
         _count(met, "cut_sdp")
         return None

@@ -244,7 +244,7 @@ def test_reset_zeroes_the_new_counters(corpus):
     got = ops.counters()
     assert got["max_arrow_bytes"] == 0 and set(got["syncs"].values()) == {0}
     assert set(got["secondary"]) == {"checked", "gated", "cut_sdp", "replaced", "refined",
-                                     "cut_refined", "refine_calls"}
+                                     "cut_refined", "refine_calls", "native"}
     assert set(got["secondary"].values()) == {0}
 
 
