@@ -46,12 +46,22 @@ class GenomeIndex:
     pos_ok: np.ndarray     # bool [G]
     k: int                 # k-mer length of sa_kmers
     seqdb: SeqDB
+    # lut()'s result, made at its first call; and the device copies of this
+    # index, by key, that pipeline/mapper.make_device_index makes at its
+    # first call for a key (unset until then: a server drops it to free them)
+    _lut: tuple | None = dataclasses.field(default=None, init=False, repr=False,
+                                           compare=False)
+    _torch_device_index_cache: dict | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     def lut(self) -> tuple[np.ndarray, int, int]:
         """(lut, shift, max_steps): lut[p] = first SA row whose key prefix
         >= p; shift maps DEVICE keys to prefixes (for wide keys the device
         holds the top-30-bit half, so the shift is within that half);
-        max_steps bounds the remaining in-bucket binary search."""
+        max_steps bounds the remaining in-bucket binary search. Made once
+        per index: later calls return the same arrays."""
+        if self._lut is not None:
+            return self._lut
         wide = 2 * self.k > 31
         hi_bits = 30 if wide else 2 * self.k
         bits = min(LUT_BITS, hi_bits)
@@ -61,7 +71,8 @@ class GenomeIndex:
         biggest = int(np.max(np.diff(lut))) if len(lut) > 1 else len(pref)
         max_steps = max(1, int(np.ceil(np.log2(biggest + 1))))
         shift = hi_bits - bits   # applied to the device-side (hi) keys
-        return lut, shift, max_steps
+        self._lut = (lut, shift, max_steps)
+        return self._lut
 
     @property
     def genome_length(self) -> int:

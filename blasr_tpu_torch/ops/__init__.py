@@ -19,7 +19,7 @@ COUNT_LOCK = threading.Lock()
 # name -> function of each place where the mapping path makes the host wait
 # for the device, registered by ``sync_site`` as its module is imported
 SYNC_SITES: dict = {}
-# the -bestn secondary path (``pipeline/runner.py``): rank >= 1 records
+# the -bestn secondary path (``pipeline/secondary.py``): rank >= 1 records
 # checked, dropped by the min_interval gate, dropped by the cut before the
 # refinement (no SDP chain, or an SDP score above -maxScore), that took the
 # SDP chain's span, that the refinement aligned, dropped by -maxScore on

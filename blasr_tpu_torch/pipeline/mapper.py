@@ -561,15 +561,7 @@ def map_batch_steps(
     d0 = torch.clamp(cand.d0.reshape(-1)[cand_flat], -L, G - 1)
     row = (dp_strand * B + b_ar).reshape(-1)                  # (I,) int32
 
-    scores_cfg = AlignScores(
-        match=params.match_score,
-        mismatch=params.mismatch_score,
-        insertion=params.insertion_score,
-        deletion=params.deletion_score,
-        affine_open=params.affine_open,
-        affine_extend=params.affine_extend,
-        matrix=params.score_matrix,
-    )
+    scores_cfg = align_scores(params)
 
     mark("candidates")
 
@@ -824,6 +816,20 @@ def require_device(device: str | torch.device) -> torch.device:
             raise RuntimeError(
                 f"device {device}: only {torch.cuda.device_count()} CUDA device(s) visible")
     return device
+
+
+def align_scores(params: MappingParams) -> AlignScores:
+    """The DP's scoring of ``params``: match, mismatch and gap scores, the
+    affine gap and the score matrix."""
+    return AlignScores(
+        match=params.match_score,
+        mismatch=params.mismatch_score,
+        insertion=params.insertion_score,
+        deletion=params.deletion_score,
+        affine_open=params.affine_open,
+        affine_extend=params.affine_extend,
+        matrix=params.score_matrix,
+    )
 
 
 def host_qual(qual: np.ndarray | None, params: MappingParams) -> np.ndarray | None:

@@ -24,10 +24,10 @@ import torch
 from blasr_tpu_torch.core.encode import revcomp_codes
 from blasr_tpu_torch.index.artifacts import GenomeIndex
 from blasr_tpu_torch.io.batching import Read
-from blasr_tpu_torch.ops.banded_align import AlignScores
 from blasr_tpu_torch.ops.sdp import sdp_align
 from blasr_tpu_torch.params import MappingParams
 from blasr_tpu_torch.pipeline import trace
+from blasr_tpu_torch.pipeline.mapper import align_scores
 from blasr_tpu_torch.pipeline.runner import AlignmentRecord, MappingMetrics, run_mapping
 from blasr_tpu_torch.pipeline.trace import StageClock
 from blasr_tpu_torch.pipeline.traceback import OP_D, OP_I, OP_M, AlignmentPath
@@ -141,15 +141,7 @@ def _merge_run(
     small segment overlaps are trimmed from the later segment's leading ops.
     ``met.piecewise_gap_fills`` counts the SDP fills.
     """
-    scores_cfg = AlignScores(
-        match=params.match_score,
-        mismatch=params.mismatch_score,
-        insertion=params.insertion_score,
-        deletion=params.deletion_score,
-        affine_open=params.affine_open,
-        affine_extend=params.affine_extend,
-        matrix=params.score_matrix,
-    )
+    scores_cfg = align_scores(params)
     first, last = run[0], run[-1]
     strand = first.tstrand
     n = len(parent.codes)

@@ -13,13 +13,8 @@ the ``-useSensitiveSearch`` retry; ``-placeRepeatsRandomly`` orders tied
 records at random. A caller may stream the records batch by batch
 (``on_batch``) and resume a run whose first batches were flushed
 (``skip_batches``, ``carried``). With
-``best_n > 1`` each secondary (rank >= 1) passes the reference's host
-admission (``pipeline/secondary_refine.py``: SDP over the candidate's
-chain, the ``min_interval`` anchor gate, ``-maxScore`` on the SDP score);
-where the SDP chain's span and the DP's disagree, the secondary is
-refined along the chain (the reference's RefineAlignment: one guided DP
-call and one walk a batch) and ``-maxScore`` cuts the refined score. A
-run that
+``best_n > 1`` each batch's secondaries (rank >= 1) pass the reference's
+host admission and refinement (``pipeline/secondary.py``). A run that
 holds reads longer than ``max_read_len`` maps them piecewise
 (``pipeline/piecewise.py``).
 
@@ -33,39 +28,17 @@ from __future__ import annotations
 import dataclasses
 import inspect
 from collections import deque
-from typing import NamedTuple, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from blasr_tpu_torch import native
 from blasr_tpu_torch.index.artifacts import GenomeIndex
 from blasr_tpu_torch.io.batching import Read, ReadBatch, batch_reads
-from blasr_tpu_torch.ops import count_secondary
-from blasr_tpu_torch.ops.banded_align import (
-    KNOT_SPACING,
-    QOFF_NUM_HALF,
-    QV_NEUTRAL,
-    QV_NEUTRAL_DUAL,
-    AlignScores,
-    make_qoff_knots,
-)
-from blasr_tpu_torch.ops.traceback_device import (
-    pack_codes_rows,
-    packed_width,
-    walk_arrows_device,
-)
-from blasr_tpu_torch.ops.transfer import to_device, to_host
+from blasr_tpu_torch.ops.transfer import to_host
 from blasr_tpu_torch.params import MappingParams
-from blasr_tpu_torch.pipeline import mapper as mapper_mod
-from blasr_tpu_torch.pipeline import trace
-from blasr_tpu_torch.pipeline.mapper import (
-    Mapper,
-    WireResult,
-    host_qual,
-    unpack_result,
-)
-from blasr_tpu_torch.pipeline.secondary_refine import revcomp_codes, sum_anchors_window
+from blasr_tpu_torch.pipeline import secondary, trace
+from blasr_tpu_torch.pipeline.mapper import Mapper, WireResult, unpack_result
 from blasr_tpu_torch.pipeline.trace import StageClock
 from blasr_tpu_torch.pipeline.traceback import AlignmentPath
 
@@ -593,293 +566,12 @@ def _paths_from_device(res) -> list[Optional[AlignmentPath]]:
     return out
 
 
-# RefineAlignment's band (GuidedAlign, 16 cells each side of the guide,
-# Blasr.cpp:833-916)
-REFINE_BAND = 32
-
-
-class _Guide(NamedTuple):
-    """A secondary that took the SDP chain's span, as its refinement takes
-    it: its batch row and strand, the chain's span of the oriented read,
-    the genome window around the chain's span (global, inside its contig),
-    the chain's blocks as (oriented read, global genome, length), and the
-    DP item's window start, the origin of the record's target coordinates."""
-
-    row: int
-    strand: int
-    q_lo: int
-    q_hi: int
-    g_lo: int
-    g_hi: int
-    blocks: list
-    t0: int
-
-
-def _count(met: Optional[MappingMetrics], name: str) -> None:
-    """One event of the secondary path: the process's counter
-    (``ops.counters()["secondary"]``) and the run's ``secondary_<name>``
-    where ``MappingMetrics`` has one."""
-    count_secondary(name)
-    field = "secondary_" + name
-    if met is not None and hasattr(met, field):
-        setattr(met, field, getattr(met, field) + 1)
-
-
-def _host_lut(index: GenomeIndex) -> np.ndarray:
-    """``index.lut()``'s key-prefix table, made once per index: the C++
-    anchor list's searches start from it."""
-    lut = getattr(index, "_host_lut", None)
-    if lut is None:
-        lut = index._host_lut = index.lut()[0]
-    return lut
-
-
-def _admit_secondary(
-    mapper: Mapper, batch: ReadBatch, res, b: int, i2: int,
-    path: AlignmentPath, anchor_cache: dict, met: MappingMetrics,
-) -> Optional[tuple[Optional[AlignmentPath], int, Optional[_Guide]]]:
-    """The -bestn secondary admission of rank >= 1 record ``i2`` (row ``b``
-    of the batch), reference semantics: each candidate interval's reported
-    alignment is its SDPAlign (Local, detailed) result and the -maxScore cut
-    acts on THAT score (AlignIntervals Blasr.cpp:1716-1724 ->
-    RemoveLowQualityAlignments :2618 truncation). Returns None when the
-    reference never emits the record: no chain, an anchor sum over the
-    interval window at or below ``min_interval``, or an SDP score above
-    ``max_score``. Else (path, score, None) with the DP's path and score
-    when the SDP chain covers the same span (0.9 overlap on both axes), or
-    (None, SDP score, guide) when the record takes the chain's span: the
-    batch's refinement aligns it along the chain (``_refine_secondaries``).
-    Both SDP passes and the anchor list run in C++ (``native``) when the
-    host library is built, and are counted ``native`` then."""
-    params = mapper.params
-    index = mapper.index
-    seqdb = index.seqdb
-    genome = index.genome
-    _count(met, "checked")
-    use_native = native.available()
-    if use_native:
-        _count(met, "native")
-    sdp_align = native.sdp_interval_align if use_native else native.sdp_interval_align_plain
-    st = int(res.sel_strand[i2])
-    n_b = int(batch.lengths[b])
-    qc = batch.codes[b, :n_b]
-    if st == 1:
-        qc = revcomp_codes(qc)
-    t0_i = int(res.sel_t0[i2])
-    # PASS 1, chain discovery: SDP Local on an unstretched window around
-    # the device chain corners with end matching off (prefix_len=0, so
-    # window-edge junk cannot seed the chain); its span reproduces the
-    # reference's interval corners
-    cd_i = int(res.sel_cd[i2])
-    g_lo_ch = int(res.cand_tlo[b, cd_i])
-    g_hi_ch = int(res.cand_thi[b, cd_i])
-    g_mid = (g_lo_ch + g_hi_ch) // 2
-    ci_w = int(seqdb.contig_of(min(max(g_mid, 0), seqdb.total_length - 1)))
-    c_lo, c_hi = int(seqdb.starts[ci_w]), int(seqdb.starts[ci_w + 1])
-    w0_lo = max(g_lo_ch - 64, c_lo)
-    w0_hi = min(g_hi_ch + 64, c_hi)
-    sdp_kw = dict(
-        word=params.sdp_tuple_size,
-        match=params.match_score, mismatch=params.mismatch_score,
-        ins=params.insertion_score, dele=params.deletion_score,
-        indel_rate=params.indel_rate * 3,
-        affine_open=params.affine_open,
-        affine_extend=params.affine_extend,
-    )
-    _, b0 = sdp_align(qc, genome[w0_lo:w0_hi], prefix_len=0, **sdp_kw)
-    if not b0:
-        _count(met, "cut_sdp")
-        return None
-    q_lo0 = b0[0][0]
-    q_hi0 = b0[-1][0] + b0[-1][2]
-    t_lo0 = w0_lo + b0[0][1]
-    t_hi0 = w0_lo + b0[-1][1] + b0[-1][2]
-    # interval-formation gate (StoreLargestIntervals minSize: SumAnchors
-    # over a readLen*(1+indelRate) window holding the cluster must EXCEED
-    # minInterval, FindMaxInterval.h:479); the anchor list of a (row,
-    # strand) is built once per batch, from the host's suffix array.
-    # FM-only indexes (-bwt) hold no suffix array and skip the gate, as the
-    # JAX runner does
-    if len(index.sa):
-        L_int = int(n_b * (1 + params.indel_rate))
-        ws_lo = max(min(t_lo0, t_hi0 - L_int), c_lo)
-        ws_hi = min(max(t_hi0, t_lo0 + L_int), c_hi)
-        akey = (b, st)
-        if akey not in anchor_cache:
-            args = (qc, genome, index.sa, index.sa_kmers, index.k)
-            anchor_cache[akey] = (
-                native.reference_anchor_list(*args, min_match=params.min_match_length,
-                                             lut=_host_lut(index))
-                if use_native else
-                native.reference_anchor_list_plain(*args, min_match=params.min_match_length))
-        _aq, at_r, al_r = anchor_cache[akey]
-        if sum_anchors_window(at_r, al_r, ws_lo, ws_hi) <= params.min_interval:
-            _count(met, "gated")
-            return None
-    # PASS 2, the reference's aligned interval: chain corners stretched by
-    # approximateMaxInsertionRate=1.3 times the unaligned read prefix and
-    # suffix (Blasr.cpp:1247-1263), full SDPAlign (Local, detailed,
-    # sdpPrefix=50)
-    w_lo = max(int(t_lo0 - q_lo0 * 1.3), c_lo)
-    w_hi = min(int(t_hi0 + (n_b - q_hi0) * 1.3), c_hi)
-    sdp_sc, sdp_blocks = sdp_align(qc, genome[w_lo:w_hi], **sdp_kw)
-    if not sdp_blocks or sdp_sc > params.max_score:
-        _count(met, "cut_sdp")
-        return None
-    q_s2 = sdp_blocks[0][0]
-    q_e2 = sdp_blocks[-1][0] + sdp_blocks[-1][2]
-    t_s2 = w_lo + sdp_blocks[0][1] - t0_i
-    t_e2 = w_lo + sdp_blocks[-1][1] + sdp_blocks[-1][2] - t0_i
-
-    def _agree(lo1, hi1, lo2, hi2):
-        ov = min(hi1, hi2) - max(lo1, lo2)
-        return ov / max(hi1 - lo1, hi2 - lo2, 1) >= 0.9
-
-    if _agree(path.q_start, path.q_end, q_s2, q_e2) and _agree(
-            path.t_start, path.t_end, t_s2, t_e2):
-        return path, int(res.sel_score[i2]), None
-    _count(met, "replaced")
-    # the genome window: the chain's span, widened by the band after it and
-    # by a knot spacing before it, so that the chain's first cell sits on a
-    # knot (query 0, target KNOT_SPACING) and the band's clip at query 0
-    # bends the knots' lerp only before it
-    guide = _Guide(
-        row=b, strand=st, q_lo=q_s2, q_hi=q_e2,
-        g_lo=max(t0_i + t_s2 - KNOT_SPACING, c_lo),
-        g_hi=min(t0_i + t_e2 + REFINE_BAND // 2, c_hi),
-        blocks=[(bq, w_lo + bt, bl) for bq, bt, bl in sdp_blocks], t0=t0_i,
-    )
-    return None, sdp_sc, guide
-
-
-def _round8(n: int) -> int:
-    return -(-n // 8) * 8
-
-
-def _chain_knots(guides: Sequence[_Guide], S: int, L: int, W: int) -> np.ndarray:
-    """(I, NK) guide knots of the refinement's band, the role of the guide
-    that RefineAlignment's GuidedAlign builds from the alignment's blocks
-    (Blasr.cpp:833-916): the guided DP's knots (``make_qoff_knots``) with
-    each block's first and last cell as anchors in the item's frame (query
-    from ``q_lo``, target from ``g_lo``), so the band of ``W`` cells is
-    centred on them, lerped between them and along the diagonal (slope
-    1/2, ``QOFF_NUM_HALF``) before the first and after the last."""
-    A = 2 * max(len(g.blocks) for g in guides)
-    a = np.zeros((len(guides), A), np.int32)
-    v = np.zeros((len(guides), A), np.int32)
-    mask = np.zeros((len(guides), A), bool)
-    for i, g in enumerate(guides):
-        bl = np.asarray(g.blocks, np.int64)
-        q, t, last = bl[:, 0] - g.q_lo, bl[:, 1] - g.g_lo, bl[:, 2] - 1
-        n = 2 * len(bl)
-        a[i, :n] = np.stack([q + t, q + t + 2 * last], axis=1).ravel()
-        v[i, :n] = np.stack([q, q + last], axis=1).ravel() - W // 2
-        mask[i, :n] = True
-    return make_qoff_knots(torch.from_numpy(a), torch.from_numpy(v), torch.from_numpy(mask),
-                           S, L, W, diag=0, num=QOFF_NUM_HALF).numpy()
-
-
-def _refine_secondaries(mapper: Mapper, batch: ReadBatch,
-                        guides: list[_Guide]) -> list[Optional[AlignmentPath]]:
-    """RefineAlignment (Blasr.cpp:799; its default guided mode, :833-916)
-    of a batch's secondaries that took the SDP chain's span: each chain's
-    query span against its genome window, with the read's phred stream,
-    in one guided DP call with arrows whose band of ``REFINE_BAND`` cells
-    follows the chain's blocks (``_chain_knots``), then
-    one walk with moves; one copy in, one fetch. Returns each guide's
-    path (its score the DP's), None where the DP found no alignment. The
-    DP is looked up on ``pipeline.mapper`` at the call, as the batch's is."""
-    params = mapper.params
-    genome = mapper.index.genome
-    W = REFINE_BAND
-    I = len(guides)
-    # room for half a band past the longest span, so the band's clip at
-    # L - W leaves the chain's last cells inside it
-    L = _round8(max(g.q_hi - g.q_lo for g in guides) + W // 2)
-    T = _round8(max(g.g_hi - g.g_lo for g in guides))
-    S = L + T - 1
-    knots = _chain_knots(guides, S, L, W)
-    NK = knots.shape[1]
-    qual_rows = host_qual(batch.qual, params)
-    query = np.full((I, L), 4, np.uint8)
-    target = np.full((I, T), 5, np.uint8)
-    bounds = np.zeros((3, I), np.int32)         # qlen, tlo, thi
-    qual = None
-    if qual_rows is not None:
-        neutral = QV_NEUTRAL_DUAL if qual_rows.dtype == np.int16 else QV_NEUTRAL
-        qual = np.full((I, L), neutral, qual_rows.dtype)
-    for i, g in enumerate(guides):
-        n_b = int(batch.lengths[g.row])
-        codes = batch.codes[g.row, :n_b]
-        if g.strand:
-            codes = revcomp_codes(codes)
-        n_q = g.q_hi - g.q_lo
-        query[i, :n_q] = codes[g.q_lo : g.q_hi]
-        if qual is not None:
-            row = qual_rows[g.row, :n_b]
-            qual[i, :n_q] = (row[::-1] if g.strand else row)[g.q_lo : g.q_hi]
-        target[i, : g.g_hi - g.g_lo] = genome[g.g_lo : g.g_hi]
-        bounds[0, i] = n_q
-        bounds[2, i] = g.g_hi - g.g_lo
-    # every input in one copy: the int32 parts first, so each part's byte
-    # offset is a multiple of its item size (L and T are multiples of 8)
-    parts = [bounds.reshape(-1).view(np.uint8), knots.reshape(-1).view(np.uint8),
-             query.reshape(-1), target.reshape(-1)]
-    if qual is not None:
-        parts.append(qual.reshape(-1).view(np.uint8))
-    buf = to_device(np.concatenate(parts), mapper.device, mapper.clock)
-    n_int = 4 * (3 + NK) * I
-    head = buf[:n_int].view(torch.int32)
-    query_t = buf[n_int : n_int + I * L].view(I, L)
-    target_t = buf[n_int + I * L : n_int + I * (L + T)].view(I, T)
-    qual_t = None
-    if qual is not None:
-        qual_t = buf[n_int + I * (L + T) :].view(torch.int16 if qual.dtype == np.int16
-                                               else torch.uint8).view(I, L)
-    knots_t = head[3 * I :].view(I, NK)
-    scores = AlignScores(
-        match=params.match_score, mismatch=params.mismatch_score,
-        insertion=params.insertion_score, deletion=params.deletion_score,
-        affine_open=params.affine_open, affine_extend=params.affine_extend,
-        matrix=params.score_matrix,
-    )
-    res = mapper_mod.banded_align(
-        query_t, head[:I], target_t, head[I : 2 * I], head[2 * I : 3 * I], None, qual_t,
-        knots=knots_t, scores=scores, with_traceback=True, band_width=W,
-    )
-    tb = walk_arrows_device(res.arrows, None, res.best_a, res.best_w, res.score,
-                            with_moves=True, qoff_knots=knots_t)
-    P = packed_width(S)
-    moves = pack_codes_rows(tb.moves_codes, tb.nops, P)
-    fields = torch.stack([res.score, tb.nops, tb.q_start, tb.q_end, tb.t_start, tb.t_end,
-                          tb.n_match, tb.n_mismatch, tb.n_ins, tb.n_del]).to(torch.int32)
-    host = to_host(torch.cat([fields.reshape(-1).view(torch.uint8), moves.reshape(-1)]),
-                   mapper.clock)
-    score, nops, qs, qe, ts, te, nm, nx, ni, nd = host[: 40 * I].view(np.int32).reshape(10, I)
-    mv = host[40 * I :].reshape(I, P)
-    _count(None, "refine_calls")
-    out: list[Optional[AlignmentPath]] = []
-    for i, g in enumerate(guides):
-        if score[i] >= 0 or nops[i] == 0:
-            out.append(None)
-            continue
-        shift = g.g_lo - g.t0
-        out.append(AlignmentPath(
-            q_start=g.q_lo + int(qs[i]), q_end=g.q_lo + int(qe[i]),
-            t_start=shift + int(ts[i]), t_end=shift + int(te[i]),
-            ops=None, packed=mv[i], packed_nops=int(nops[i]), score=int(score[i]),
-            n_match=int(nm[i]), n_mismatch=int(nx[i]), n_ins=int(ni[i]), n_del=int(nd[i]),
-        ))
-    return out
-
-
 def _finalize_batch(
     mapper: Mapper, batch: ReadBatch, device_res: WireResult, met: MappingMetrics
 ) -> tuple[list[AlignmentRecord], list[str]]:
-    """Records of one batch: the secondary admission of rank >= 1 records
-    and the refinement of those that took the SDP chain's span (``best_n >
-    1``), contig coordinates and the reporting filters (maxScore, pct
-    identity, alignment length, mapQV)."""
+    """Records of one batch: the -bestn secondary tail
+    (``secondary.admit_and_refine``), contig coordinates and the reporting
+    filters (maxScore, pct identity, alignment length, mapQV)."""
     params = mapper.params
     seqdb = mapper.index.seqdb
     res = unpack_result(device_res, params.dp_candidates)
@@ -896,38 +588,10 @@ def _finalize_batch(
     mapped_reads: set[int] = set()
     B = batch.codes.shape[0]
     lens = seqdb.lengths()
-    anchor_cache: dict = {}   # (batch row, strand) -> reference anchor list
-    kept: list[tuple[int, Optional[AlignmentPath], int]] = []  # (i2, path, score)
-    guides: dict[int, _Guide] = {}                             # kept's index -> guide
-    for i2, path in enumerate(paths):
-        b = i2 // params.best_n
-        if batch.indices[b] < 0:
-            continue  # padding row
-        if path is None or not valid[i2]:
-            continue
-        score = int(scores[i2])
-        if i2 % params.best_n >= 1:
-            t_adm = trace.begin(mapper.clock, "secondary")
-            admitted = _admit_secondary(mapper, batch, res, b, i2, path, anchor_cache, met)
-            met.secondary_seconds += (trace.end(mapper.clock) - t_adm) * 1e-9
-            if admitted is None:
-                continue
-            path, score, guide = admitted
-            if guide is not None:
-                guides[len(kept)] = guide
-        kept.append((i2, path, score))
-    if guides:
-        t_ref = trace.begin(mapper.clock, "refine")
-        refined = _refine_secondaries(mapper, batch, list(guides.values()))
-        met.secondary_seconds += (trace.end(mapper.clock) - t_ref) * 1e-9
-        for k, path in zip(guides, refined):
-            # RemoveLowQuality after RefineAlignments (Blasr.cpp:2615-2618)
-            ok = path is not None and path.score <= params.max_score
-            _count(met, "refined" if ok else "cut_refined")
-            kept[k] = (kept[k][0], path, path.score) if ok else (kept[k][0], None, 0)
-    for k, (i2, path, score) in enumerate(kept):
-        if path is None:
-            continue
+    found = [(i2, path, int(scores[i2])) for i2, path in enumerate(paths)
+             if path is not None and valid[i2] and batch.indices[i2 // params.best_n] >= 0]
+    kept = secondary.admit_and_refine(mapper, batch, res, found, met)
+    for i2, path, score, refined in kept:
         b = i2 // params.best_n
         if score > params.max_score:
             continue
@@ -976,7 +640,7 @@ def _finalize_batch(
                 tend_fwd=te_f,
                 path=path,
                 read_index=int(batch.indices[b]),
-                refined=k in guides,
+                refined=refined,
             )
         )
         mapped_reads.add(b)

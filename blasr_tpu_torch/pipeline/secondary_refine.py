@@ -1,27 +1,20 @@
-"""Reference-faithful secondary-record admission (the -bestn tail); the
+"""The plain host references of the -bestn secondary admission; the
 port's copy of ``blasr_tpu/pipeline/secondary_refine.py``, host numpy.
 
-Role of the reference's pre-refine RemoveLowQualityAlignments cut
-(Blasr.cpp:1994-2090 path: AlignIntervals scores each candidate interval by
-its detailed-SDP block chain + ComputeAlignmentStats gap rendering,
-AlignmentUtils.h:536; records sorted by that score are truncated at the
-first score > -maxScore). A secondary interval whose seed chain supports
-only part of the read scores far above -maxScore there — the reference
-never emits it — while this pipeline's full-window LOCAL DP finds a
-genuine low-identity path over the whole window and would.
+The port calls four of its functions. ``sdp_interval_align`` (SDPAlign,
+Local and detailed, over a candidate interval) and
+``reference_anchor_list`` (the reference's anchor list of one read
+orientation) are the plain versions of the C++ helpers of those names:
+``native`` runs these when no ``g++`` built the host library, and the
+tests hold the C++ to them. ``sum_anchors_window`` (the ``min_interval``
+gate's anchor sum) and ``revcomp_codes`` are called as they are, by
+``pipeline/secondary.py``.
 
-Instead of re-running SDP on host, the DP path itself supplies the block
-chain: the reference's SDP blocks are exact sdpTupleSize-mers on the
-optimal chain, and every exact >= sdpTupleSize match run on our DP path is
-such a block (conversely, mushy low-identity stretches carry almost no
-exact 11-runs: P ~ id^11). Scoring follows CreateAlignmentStrings'
-between-block gap rendering exactly (AlignmentUtils.h:466-533): the common
-part of a (qgap, tgap) pair renders as aligned columns over the LAST
-common bases of each gap, the remainder as pure indels.
-
-Local semantics: the chain spans first block -> last block; unaligned
-prefix/suffix of the path is NOT penalized (SDPAlign is called with
-Local, Blasr.cpp:1716-1721, and extendAlignments defaults false).
+The rest is kept whole as a copy of the JAX module, which the tests hold
+equal line for line: ``sdp_block_score`` among it, a scoring of a DP
+path's exact blocks that the port never runs, and ``stats_from_blocks``
+and ``blocks_to_ops``, which the JAX runner uses for a record that takes
+the SDP chain's blocks (the port refines such a record instead).
 """
 
 from __future__ import annotations

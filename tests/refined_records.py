@@ -2,7 +2,7 @@
 benchmark's plain reference (``portbench/reference/align.py``).
 
 At ``best_n > 1`` a secondary whose SDP chain's span disagrees with its
-DP's is refined along the chain (``pipeline/runner._refine_secondaries``);
+DP's is refined along the chain (``pipeline/secondary._refine_secondaries``);
 the JAX package emits the chain's SDP blocks there instead, so the two
 packages differ on exactly those records. Tests compare every other
 record with the JAX package (``untouched``) and hold each refined one to

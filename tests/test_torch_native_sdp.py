@@ -5,10 +5,11 @@
 those names (``native.*_plain``): the same score and blocks, the same
 anchors, on the secondary tests' SDP shapes, on seeded windows over a
 genome with duplicated 2 kb blocks and on a small genome with its suffix
-array. Then ``runner._admit_secondary`` record for record at ``-bestn 10``
-on the repeat corpus with the C++ and with the plain path (the latter
-chosen by making ``native.available`` read False), and the ``native``
-counter."""
+array. Then ``secondary._admit_secondary`` record for record at
+``-bestn 10`` on the repeat corpus with the C++ and with the plain path
+(the latter chosen by making the host library read as not built), and the
+``native`` counter; and that the run loop reaches the tail through
+``pipeline/secondary.py`` alone."""
 
 import dataclasses
 
@@ -16,9 +17,9 @@ import numpy as np
 import pytest
 
 from blasr_tpu_torch import native, ops
-from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+from blasr_tpu_torch.index.artifacts import GenomeIndex, build_index_from_arrays
 from blasr_tpu_torch.io.seqdb import SeqDB
-from blasr_tpu_torch.pipeline import runner
+from blasr_tpu_torch.pipeline import runner, secondary
 from blasr_tpu_torch.pipeline import secondary_refine as tsr
 from blasr_tpu_torch.pipeline.runner import MappingMetrics, run_mapping
 
@@ -140,30 +141,63 @@ def test_native_anchor_list_equals_plain(min_match, deficit):
 
 
 def test_admission_native_equals_plain_and_counts(monkeypatch):
-    """``_admit_secondary`` at -bestn 10 on the repeat corpus's first two
-    batches: each record's (path, score, guide) from the C++ path, replayed
-    through the plain path, is the same; ``native`` counts every checked
-    record of the C++ path and none of the plain one."""
+    """``secondary._admit_secondary`` at -bestn 10 on the repeat corpus's
+    first two batches: each record's (path, score, guide) from the C++ path,
+    replayed through the plain path, is the same; ``native`` counts every
+    checked record of the C++ path and none of the plain one."""
     index, reads = repeat_corpus()
-    admit = runner._admit_secondary
+    admit = secondary._admit_secondary
     seen = []
 
-    def recorded(mapper, batch, res, b, i2, path, anchor_cache, met):
-        out = admit(mapper, batch, res, b, i2, path, anchor_cache, met)
-        seen.append(((mapper, batch, res, b, i2, path), out))
+    def recorded(state, b, i2, path, met):
+        out = admit(state, b, i2, path, met)
+        seen.append(((state.mapper, state.batch, state.res), (b, i2, path), out))
         return out
 
-    monkeypatch.setattr(runner, "_admit_secondary", recorded)
+    monkeypatch.setattr(secondary, "_admit_secondary", recorded)
     ops.reset_launch_counts()
     met = MappingMetrics()
     run_mapping(index, reads[:16], BESTN10, device="cpu", metrics=met)
     counts = ops.counters()["secondary"]
     assert counts["native"] == counts["checked"] == met.secondary_checked == len(seen) >= 8
     assert met.secondary_gated >= 1 and met.secondary_replaced >= 1
-    assert any(out is not None and out[2] is None for _, out in seen)   # the DP's path kept
+    assert any(out is not None and out[2] is None for *_, out in seen)  # the DP's path kept
 
-    monkeypatch.setattr(native, "available", lambda: False)
-    for args, out in seen:
-        assert admit(*args, {}, MappingMetrics()) == out
+    monkeypatch.setattr(native._build, "load_host_library", lambda: None)
+    for batch_args, args, out in seen:
+        assert admit(secondary._BatchState(*batch_args), *args, MappingMetrics()) == out
     counts = ops.counters()["secondary"]
     assert counts["checked"] == 2 * len(seen) and counts["native"] == len(seen)
+
+
+def test_secondary_tail_is_one_module_and_the_prefix_table_the_index():
+    """The run loop reaches the -bestn secondary tail through
+    ``pipeline/secondary.py`` alone: ``pipeline/runner.py`` imports neither
+    ``native`` nor ``secondary_refine``. A -bestn 10 run on the repeat
+    corpus leaves the index with only the attributes its class declares,
+    and ``GenomeIndex.lut()`` returns the same arrays on every call."""
+    import ast
+
+    with open(runner.__file__) as f:
+        tree = ast.parse(f.read())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            imported |= {f"{node.module}.{a.name}" for a in node.names} | {node.module}
+    for name in imported:
+        assert not name.endswith((".native", ".secondary_refine")), name
+    assert "blasr_tpu_torch.pipeline.secondary" in imported
+
+    jindex, reads = repeat_corpus()
+    s = jindex.seqdb
+    index = build_index_from_arrays(jindex.genome, SeqDB(list(s.names), s.starts, list(s.md5s)),
+                                    k=jindex.k)
+    met = MappingMetrics()
+    run_mapping(index, reads[:16], BESTN10, device="cpu", metrics=met)
+    assert met.secondary_gated >= 1                     # the anchor list ran
+    declared = {f.name for f in dataclasses.fields(GenomeIndex)}
+    assert set(vars(index)) <= declared, set(vars(index)) - declared
+    first, again = index.lut(), index.lut()
+    assert all(a is b for a, b in zip(first, again))

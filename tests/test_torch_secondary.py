@@ -91,11 +91,11 @@ def test_sdp_blocks_stats_and_ops_equal_jax(case):
 
 @pytest.mark.parametrize("case", ["copy", "noisy", "indel"])
 def test_chain_knots_follow_the_blocks(case):
-    """The refinement's guide knots (``runner._chain_knots``: the guided
+    """The refinement's guide knots (``secondary._chain_knots``: the guided
     band's ``make_qoff_knots`` on the blocks' first and last cells) keep
     every cell of every block of each chain inside the band, for items of
     one call with chains of different lengths (the padded anchors masked)."""
-    from blasr_tpu_torch.pipeline.runner import REFINE_BAND, _chain_knots, _Guide
+    from blasr_tpu_torch.pipeline.secondary import REFINE_BAND, _chain_knots, _Guide
 
     q, t, kw = _sdp_pair(case)
     _, blocks = tsr.sdp_interval_align(q, t, **kw)
