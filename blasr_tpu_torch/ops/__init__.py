@@ -1,14 +1,14 @@
 """Device compute of the port: anchoring, candidates, banded DP, walk, MAPQ.
 
-The four hand-written CUDA kernels of the mapping path are reached through
-``banded_cuda.banded_align``, ``gather.gather_spans``, ``gather.gather_rows``
-and ``traceback_device.walk_arrows_device``; each wrapper counts its kernel
-launches (``launch_counts``). Each place where the mapping path makes the
-host wait for the device counts its waits, and the DP wrapper keeps the largest
-arrow tensor it made (``counters``). The -bestn secondary path counts its
-records and its refinement's DP calls (``SECONDARY``). All are always on,
-one integer add where the work happens, and ``reset_launch_counts`` zeroes
-them.
+The five hand-written CUDA kernels of the mapping path are reached through
+``banded_cuda.banded_align``, ``gather.gather_spans``, ``gather.gather_rows``,
+``traceback_device.walk_arrows_device`` and ``mapqv.map_qv_reference``; each
+wrapper counts its kernel launches (``launch_counts``). Each place where the
+mapping path makes the host wait for the device counts its waits, and the DP
+wrapper keeps the largest arrow tensor it made (``counters``). The -bestn
+secondary path counts its records and its refinement's DP calls
+(``SECONDARY``). All are always on, one integer add where the work happens,
+and ``reset_launch_counts`` zeroes them.
 """
 
 import threading
@@ -49,13 +49,14 @@ def sync_site(name: str):
 
 def kernel_wrappers() -> dict:
     """Name -> wrapper of every kernel on the mapping path."""
-    from blasr_tpu_torch.ops import banded_cuda, gather, traceback_device
+    from blasr_tpu_torch.ops import banded_cuda, gather, mapqv, traceback_device
 
     return {
         "banded_dp": banded_cuda.banded_align,
         "gather_spans": gather.gather_spans,
         "gather_rows": gather.gather_rows,
         "traceback_walk": traceback_device.walk_arrows_device,
+        "mapqv": mapqv.map_qv_reference,
     }
 
 

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 # no -march=native: the library may be loaded on another host than the
 # one that built it
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-CUDA_SOURCES = ("banded_dp.cu", "gather.cu", "traceback_walk.cu")
+CUDA_SOURCES = ("banded_dp.cu", "gather.cu", "traceback_walk.cu", "mapqv.cu")
 HOST_SOURCE = "host_native.cpp"
 
 _P = ctypes.c_void_p
@@ -65,6 +65,15 @@ _SIGNATURES = {
         _I, _I, _I, _I,              # I S W max_steps
         _P,                          # cudaStream_t
     ], ctypes.c_int),
+    "mapqv_launch": ([
+        _P, _P, _P, _P,              # scores valid q_lo q_hi (B, CD)
+        _P, _P, _P, _P,              # n_match n_mismatch n_ins n_del (B, CD)
+        _I, _I, _I,                  # mismatch_prob ins_cost del_cost
+        _P, _P, _P,                  # out (B, CD) int32, q_float (B, CD) float32, scratch or NULL
+        _I, _I,                      # B CD
+        _P,                          # cudaStream_t
+    ], ctypes.c_int),
+    "mapqv_scratch_words": ([_I, _I], ctypes.c_longlong),
     "bn_sais_i32": ([_P, ctypes.c_int32, _P], ctypes.c_int),
     "bn_sais_i64": ([_P, ctypes.c_int64, _P], ctypes.c_int),
     "bn_encode_strip": ([ctypes.c_char_p, ctypes.c_int64, _P], ctypes.c_int64),

@@ -14,6 +14,12 @@ multiply and add one multiply-add, and ``exp``, ``log1p``, ``log`` and
 ``pow`` XLA's own functions (``ops/xla_math.py``). So a mapping quality
 whose float lies within a few ulps of an integer truncates as the JAX
 package's does, on the CPU and on the card.
+
+``map_qv_reference`` is what the mapper calls. On CUDA tensors it launches
+the hand-written kernel ``csrc/mapqv.cu`` (one thread per read, one launch
+a call, no wait for the device) or raises, and counts its launches in
+``map_qv_reference.launches``. On CPU tensors it runs ``map_qv_float``,
+which defines the result bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from blasr_tpu_torch.ops import COUNT_LOCK, _build
+from blasr_tpu_torch.ops.banded_cuda import check_tensor
 from blasr_tpu_torch.ops.xla_math import INV_LN10, fma_f32, pow10, xla_exp, xla_log, xla_log1p
 
 LOG10 = 2.302585092994046
@@ -47,10 +55,68 @@ def map_qv_reference(
     ins_cost: int = 5,
     del_cost: int = 5,
 ) -> torch.Tensor:
-    """Per-candidate mapQV (B, CD) int32: ``map_qv_float`` truncated."""
-    q = map_qv_float(scores, valid, q_lo, q_hi, n_match, n_mismatch, n_ins, n_del,
-                     mismatch_prob=mismatch_prob, ins_cost=ins_cost, del_cost=del_cost)
-    return torch.clamp(q, 0, MAX_PHRED).to(torch.int32)
+    """Per-candidate mapQV (B, CD) int32: ``map_qv_float`` clamped to
+    [0, 254] and truncated; on CUDA tensors from one launch of
+    ``csrc/mapqv.cu`` (``map_qv_kernel``), on CPU tensors from the plain
+    version."""
+    args = (scores, valid, q_lo, q_hi, n_match, n_mismatch, n_ins, n_del)
+    costs = dict(mismatch_prob=mismatch_prob, ins_cost=ins_cost, del_cost=del_cost)
+    if scores.is_cuda:
+        return map_qv_kernel(*args, **costs)[0]
+    return torch.clamp(map_qv_float(*args, **costs), 0, MAX_PHRED).to(torch.int32)
+
+
+map_qv_reference.launches = 0
+
+
+def map_qv_kernel(
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    q_lo: torch.Tensor,
+    q_hi: torch.Tensor,
+    n_match: torch.Tensor,
+    n_mismatch: torch.Tensor,
+    n_ins: torch.Tensor,
+    n_del: torch.Tensor,
+    *,
+    mismatch_prob: int = 15,
+    ins_cost: int = 5,
+    del_cost: int = 5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``map_qv_reference``'s (B, CD) int32 result and ``map_qv_float``'s
+    (B, CD) float32 one, from one launch of ``csrc/mapqv.cu`` on the
+    scores' device and its current stream.
+
+    Takes contiguous (B, CD) tensors on one CUDA device: ``valid`` bool, the
+    others int32; raises on anything else. The kernel's per-candidate
+    arrays go to a scratch tensor allocated here. Nothing here waits for
+    the device; the launch counts in ``map_qv_reference.launches``.
+    """
+    if scores.dim() != 2:
+        raise ValueError(f"scores: expected (B, CD), got {tuple(scores.shape)}")
+    B, CD = scores.shape
+    dev = scores.device
+    i32 = torch.int32
+    ins = (("scores", scores, i32), ("valid", valid, torch.bool), ("q_lo", q_lo, i32),
+           ("q_hi", q_hi, i32), ("n_match", n_match, i32), ("n_mismatch", n_mismatch, i32),
+           ("n_ins", n_ins, i32), ("n_del", n_del, i32))
+    for name, t, dtype in ins:
+        check_tensor(name, t, dtype, (B, CD))
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the scores on {dev}")
+    lib = _build.load_library()
+    out = torch.empty((B, CD), dtype=i32, device=dev)
+    q_float = torch.empty((B, CD), dtype=torch.float32, device=dev)
+    scratch = torch.empty(lib.mapqv_scratch_words(B, CD), dtype=i32, device=dev)
+    err = lib.mapqv_launch(
+        *(t.data_ptr() for _, t, _ in ins), mismatch_prob, ins_cost, del_cost,
+        out.data_ptr(), q_float.data_ptr(), scratch.data_ptr(),
+        B, CD, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, f"mapqv (B={B}, CD={CD})")
+    with COUNT_LOCK:
+        map_qv_reference.launches += 1
+    return out, q_float
 
 
 def map_qv_float(

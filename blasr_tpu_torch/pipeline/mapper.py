@@ -23,7 +23,8 @@ order:
   9. one uint8 wire buffer that ``unpack_result`` slices on the host
 
 Everything is plain PyTorch on the ``device`` the ``Mapper`` was built for;
-the three kernels of the path are CUDA on the card.
+the gathers, the DP, the walk and MAPQ are hand-written CUDA kernels on the
+card.
 """
 
 from __future__ import annotations

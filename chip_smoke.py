@@ -41,13 +41,18 @@ Phases, each of which must pass:
      walk's knots instance against the plain walk, with the launches a
      refinement costs and each refined record held to the plain
      reference; ``--only refine`` runs this part after phase 1 alone);
+     the MAPQ kernel against the plain version at B = 1024, CD = 10 and
+     on one read per branch (tests/mapq_cases.py), float bits and
+     integers equal, with its times, the plain version's time and
+     launches on the card and its bound;
      then the microbenchmark's span gathers once on their own, with the
      launch counts reset, for K2' launches;
   4. the FASTA bench corpus through run_mapping on the card at the bench
      operating point (a warm-up run, then one timed run with the per-stage
      clock on and every kernel launch counter reset just before it, in
      which, as in every run_mapping run of later phases, the walk kernel
-     runs once a DP call; each
+     runs once a DP call and the MAPQ kernel once a DP call of the mapping
+     step; each
      later cell maps once, so, with no warm-up, to fit the time limit),
      the timed run's -m 4 lines equal to the JAX package's read by read
      (tools/jax_m4_reference.json; with --out the card's lines are written
@@ -172,7 +177,7 @@ Phases, each of which must pass:
      card, its anchor lines the JAX dump's in canonical order.
 The line before the last is a JSON object with each kernel's launches
 (each on its own path: the single-quality DP and the gathers on config 2,
-the walk on the FASTA corpus and, with moves, on config 2;
+the walk and MAPQ on the FASTA corpus and on config 2;
 K1, K2 and K3 also on config 4's timed run, ``launches_config4``,
 on phase 12's timed run, ``launches_k15`` and ``launches_k18``, and on
 phase 13's runs, ``launches_config5`` and ``launches_long``; on phase
@@ -325,7 +330,13 @@ KERNEL_META = {
     "gather_rows": ("blasr_tpu_torch/csrc/gather.cu", "blasr_tpu/ops/dma_gather.py:127"),
     # the JAX package's walk is plain jnp code, no pallas_call
     "traceback_walk": ("blasr_tpu_torch/csrc/traceback_walk.cu", None),
+    # and so is its MAPQ
+    "mapqv": ("blasr_tpu_torch/csrc/mapqv.cu", None),
 }
+# the MAPQ kernel against the plain version at the benchmark cells' batch
+# (B = 1024 reads, CD = 10 candidates a read)
+MAPQV_SHAPE = (1024, 10)
+MAPQV_REPS = 100
 CLI_FLAGS = ["-m", "4", "-device", "cuda", "-minMatch", "14", "-nCandidates", "4",
              "-dpCandidates", "2", "-anchorStride", "4", "-maxAnchorsPerRead", "128",
              "-batchSize", "256", "-maxReadLen", "3328", "-bandSize", "16"]
@@ -1019,7 +1030,8 @@ def map_corpus(index, reads, params, warmup: bool = False, formatter=None,
     import torch
 
     from blasr_tpu_torch import bench
-    from blasr_tpu_torch.ops import dp_launch_counts, launch_counts, reset_launch_counts
+    from blasr_tpu_torch.ops import counters, dp_launch_counts, launch_counts, \
+        reset_launch_counts
     from blasr_tpu_torch.output.m4 import format_m4
     from blasr_tpu_torch.output.sam_writer import write_sam
     from blasr_tpu_torch.pipeline.mapper import StageClock
@@ -1044,6 +1056,10 @@ def map_corpus(index, reads, params, warmup: bool = False, formatter=None,
     counts, by_shape = launch_counts(), dp_launch_counts()
     if counts["traceback_walk"] != counts["banded_dp"]:
         raise AssertionError(f"the walk kernel did not run once a DP call: {counts}")
+    # MAPQ runs once a DP call of the mapping step, not after a refinement's
+    if counts["mapqv"] != counts["banded_dp"] - counters()["secondary"]["refine_calls"]:
+        raise AssertionError(f"the MAPQ kernel did not run once a mapping DP call: {counts}, "
+                             f"secondary {counters()['secondary']}")
     peak = torch.cuda.max_memory_allocated()
     out = {}
     if sam_movie is not None:
@@ -1443,14 +1459,81 @@ def check_walk(index, genome_fa: str, reads_fa: str) -> list:
         raise AssertionError("the real batch never reached the walk")
     return rows + batch
 
-def load_refined_records():
-    """``tests/refined_records.py``, by its path: a package named ``tests``
+def load_tests_module(name: str):
+    """``tests/<name>.py``, by its path: a package named ``tests``
     installed on the machine would shadow the repository's directory."""
     spec = importlib.util.spec_from_file_location(
-        "refined_records", os.path.join(HERE, "tests", "refined_records.py"))
+        name, os.path.join(HERE, "tests", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def check_mapqv() -> dict:
+    """The MAPQ kernel (``mapqv.map_qv_kernel``, one launch) against the
+    plain version (``map_qv_float``, the same PyTorch code on the card) at
+    MAPQV_SHAPE on ``tests/mapq_cases.random_case``'s reads, and on the
+    branch rows of ``BRANCH_ROWS``: the float32 bits and the int32 result
+    equal. Times: the kernel per call (CUDA events over back-to-back
+    calls) and on the device alone (CUDA-graph replay), the plain version
+    on the card (one call after a warm-up, host clock to a synchronise,
+    its launches counted by the profiler). Bound: the bytes read and
+    written once at 3.35 TB/s."""
+    import numpy as np
+    import torch
+
+    from blasr_tpu_torch.ops import mapqv
+
+    cases = load_tests_module("mapq_cases")
+    B, CD = MAPQV_SHAPE
+    rows = []
+    for label, args in (("random", cases.random_case(CD, 2201, B=B)),
+                        ("branches", cases.branch_cases()[0])):
+        cpu = [torch.from_numpy(a) for a in args]
+        dev = [a.cuda() for a in cpu]
+        want_q = mapqv.map_qv_float(*cpu)
+        want = torch.clamp(want_q, 0, mapqv.MAX_PHRED).to(torch.int32)
+        before = mapqv.map_qv_reference.launches
+        got, got_q = mapqv.map_qv_kernel(*dev)
+        torch.cuda.synchronize()
+        if mapqv.map_qv_reference.launches != before + 1:
+            raise AssertionError(f"mapqv[{label}]: not one kernel launch")
+        err = int((got.cpu().long() - want.long()).abs().max())
+        bits = int((got_q.cpu().view(torch.int32) != want_q.view(torch.int32)).sum())
+        row = {"label": label, "B": cpu[0].shape[0], "CD": cpu[0].shape[1],
+               "max_abs_err": err, "float_bits_differing": bits,
+               "distinct": len(torch.unique(want))}
+        if label == "random":
+            def call():
+                mapqv.map_qv_reference(*dev)
+
+            def plain():
+                torch.clamp(mapqv.map_qv_float(*dev), 0, mapqv.MAX_PHRED).to(torch.int32)
+
+            plain()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                plain()
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            n_bytes = sum(a.numel() * a.element_size() for a in dev) + 8 * B * CD
+            row.update(ms=cuda_ms(call, reps=MAPQV_REPS),
+                       device_ms=graph_ms(call, reps=MAPQV_REPS, rounds=5),
+                       plain_ms=plain_ms,
+                       plain_launches=sum(e.count for e in prof.key_averages()
+                                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                       bytes=n_bytes, bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3)
+        log(f"mapqv[{label}] B={row['B']} CD={row['CD']}: max_abs_err={err}, float bits "
+            f"differing {bits}, {row['distinct']} distinct qualities"
+            + (f"; kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} ms), plain "
+               f"{row['plain_ms']:.1f} ms ({row['plain_launches']} kernels), bound "
+               f"{row['bound_ms'] * 1e3:.3f} us ({row['bytes']} bytes)" if "ms" in row else ""))
+        if err or bits:
+            raise AssertionError(f"MAPQ kernel disagrees with the plain version on {label}")
+        rows.append(row)
+    return rows
 
 
 def check_refine(latency_ns: float | None = None) -> dict:
@@ -1477,7 +1560,7 @@ def check_refine(latency_ns: float | None = None) -> dict:
     from portbench.harness.cell import CellRun
     from portbench.harness.spec import Bench
 
-    refined_records = load_refined_records()
+    refined_records = load_tests_module("refined_records")
     if latency_ns is None:
         latency_ns = walk_latency_ns(torch.device("cuda"))
     # the cell maps at its own batch size (40 GiB at its peak): hand back
@@ -1518,10 +1601,11 @@ def check_refine(latency_ns: float | None = None) -> dict:
         raise AssertionError(f"the batch refined nothing on the card: {len(calls)} guided calls, "
                              f"counters {sec}")
     if by_shape.get("W32/guided", 0) != sec["refine_calls"] or \
-            launches["traceback_walk"] != launches["banded_dp"]:
+            launches["traceback_walk"] != launches["banded_dp"] or \
+            launches["mapqv"] != launches["banded_dp"] - sec["refine_calls"]:
         raise AssertionError(f"refinement launches: W32/guided {by_shape.get('W32/guided')} for "
                              f"{sec['refine_calls']} refine calls; walk {launches['traceback_walk']}"
-                             f" for {launches['banded_dp']} DP calls")
+                             f" and MAPQ {launches['mapqv']} for {launches['banded_dp']} DP calls")
     refined = [r for r in records if r.refined]
     held = refined_records.check_records(refined, part, run.index)
     log(f"refine: {len(refined)} refined records held to the plain reference: {held}")
@@ -1716,7 +1800,7 @@ def check_config3(genome_fa: str, reads_fa: str, reads, index, refs: dict, out_d
     from blasr_tpu_torch.output.verbose import format_m5
     from blasr_tpu_torch.pipeline.runner import run_mapping
 
-    refined_records = load_refined_records()
+    refined_records = load_tests_module("refined_records")
     params = bench.config3_params()
     by_name = {r.name: r for r in reads}
     log("config 3 (-bestn 2 -m 5) on the FASTA corpus through run_mapping:")
@@ -2157,7 +2241,8 @@ def check_piecewise(genome_fa: str, index, refs: dict, out_dir) -> dict:
     from blasr_tpu_torch import bench
     from blasr_tpu_torch.io.batching import read_records
     from blasr_tpu_torch.io.fasta import write_fasta
-    from blasr_tpu_torch.ops import dp_launch_counts, launch_counts, reset_launch_counts
+    from blasr_tpu_torch.ops import counters, dp_launch_counts, launch_counts, \
+        reset_launch_counts
     from blasr_tpu_torch.output.m4 import format_m4
     from blasr_tpu_torch.output.sam_writer import write_sam
     from blasr_tpu_torch.pipeline.mapper import StageClock, make_device_index
@@ -2188,6 +2273,9 @@ def check_piecewise(genome_fa: str, index, refs: dict, out_dir) -> dict:
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts, by_shape = launch_counts(), dp_launch_counts()
+        if counts["mapqv"] != counts["banded_dp"] - counters()["secondary"]["refine_calls"]:
+            raise AssertionError(f"{cell}: the MAPQ kernel did not run once a mapping DP call: "
+                                 f"{counts}, secondary {counters()['secondary']}")
         peak = torch.cuda.max_memory_allocated()
         stage = dict(clock.seconds)
         total_stage = sum(stage.values())
@@ -2945,6 +3033,7 @@ def run(out_path: str | None, only: str | None = None) -> int:
     del windows
     walk_rows = check_walk(index, genome_fa, reads_fa)
     refine = check_refine()
+    mapqv_rows = check_mapqv()
     t0 = time.time()
     di = make_device_index(index, params, "cuda")
     torch.cuda.synchronize()
@@ -3154,6 +3243,16 @@ def run(out_path: str | None, only: str | None = None) -> int:
         "plain_ms": main["stats"]["plain_ms"], "bound_ms": main["stats"]["latency_bound_ms"],
         "bound_by": "latency", "library_ms": None,
     })
+    main = next(r for r in mapqv_rows if r["label"] == "random")
+    src, replaces = KERNEL_META["mapqv"]
+    kernels.append({
+        "name": "mapqv", "route": "cuda", "source": src, "replaces": replaces,
+        "launches": fasta["launches"]["mapqv"],
+        "launches_config2": config2["launches"]["mapqv"],
+        "max_abs_err": max(r["max_abs_err"] for r in mapqv_rows),
+        "ms": main["ms"], "device_ms": main["device_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    })
     if any(k["launches"] <= 0 or min(k.get(f"launches_{c}", 1) for c in (
             "config4", "k15", "k18", "config5", "long", "cli_host", "resume")) <= 0
            or min(k.get("launches_modes", {"-": 1}).values()) <= 0
@@ -3172,7 +3271,7 @@ def run(out_path: str | None, only: str | None = None) -> int:
             json.dump({
                 "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                 "host_helpers": index_path, "dp": dp_rows, "dp_guided": guided_rows,
-                "walk": walk_rows, "refine": refine,
+                "walk": walk_rows, "refine": refine, "mapqv": mapqv_rows,
                 "dp_matrix": matrix_rows, "gathers": g_rows, "micro_dma": micro_rows,
                 "micro_dma_launches": micro_launches,
                 "fasta": fasta, "cli": {k: v for k, v in cli.items() if k != "m4"},

@@ -188,11 +188,13 @@ def test_fma_rounds_once():
     assert got[n + 2] == -np.float32(1 + 2.0**-11 + 2.0**-23)
 
 
-@pytest.mark.parametrize("CD", [2, 4])
+@pytest.mark.parametrize("CD", [2, 4, 10])
 def test_map_qv_reference_matches_jax(CD):
     rng = np.random.default_rng(CD)
     B = 256
-    lo = rng.integers(0, 300, (B, CD)).astype(np.int32)
+    # at the cells' CD of 10 the placements spread over 300 positions a
+    # candidate, so that several partitions of a few members form
+    lo = rng.integers(0, 300 if CD <= 4 else 300 * CD, (B, CD)).astype(np.int32)
     hi = lo + rng.integers(50, 900, (B, CD)).astype(np.int32)
     # near-duplicate placements so partitions and the gates engage
     lo[:, 1] = np.where(rng.random(B) < 0.6, lo[:, 0] + rng.integers(-8, 8, B), lo[:, 1])

@@ -399,6 +399,132 @@ def test_mapq_math_is_the_same_on_the_card(dev):
     assert torch.equal(card.view(torch.int32), cpu.view(torch.int32))
 
 
+
+def _mapqv_on_the_card_equals_cpu(dev, args, kw=None):
+    """The MAPQ kernel on the card against ``map_qv_float`` on the CPU:
+    one launch, the float32 bits and the int32 result equal; returns the
+    result."""
+    from blasr_tpu_torch.ops import mapqv
+
+    kw = kw or {}
+    cpu = [torch.from_numpy(a) for a in args]
+    want_q = mapqv.map_qv_float(*cpu, **kw)
+    want = torch.clamp(want_q, 0, mapqv.MAX_PHRED).to(torch.int32)
+    before = mapqv.map_qv_reference.launches
+    got, got_q = mapqv.map_qv_kernel(*(a.to(dev) for a in cpu), **kw)
+    torch.cuda.synchronize()
+    assert mapqv.map_qv_reference.launches == before + 1
+    assert torch.equal(got_q.cpu().view(torch.int32), want_q.view(torch.int32))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(mapqv.map_qv_reference(*(a.to(dev) for a in cpu), **kw).cpu(), want)
+    return want
+
+
+@pytest.mark.parametrize("CD", [1, 2, 4, 10, 24])
+def test_mapqv_kernel_matches_plain(dev, CD):
+    """Random reads with near-duplicate placements and score ties, at the
+    cells' CD of 10, at small CDs and at 24, wider than any cell's."""
+    from mapq_cases import random_case
+
+    want = _mapqv_on_the_card_equals_cpu(dev, random_case(CD, 100 + CD, B=1024))
+    assert CD == 1 or len(torch.unique(want)) > 5
+
+
+def test_mapqv_kernel_branches(dev):
+    """Each branch of the plain version (``tests/mapq_cases.BRANCH_ROWS``):
+    psize <= 1, sub < -20, one_minus <= 0 and < 0, no valid candidate,
+    invalid candidates between valid ones, subnormal intermediates."""
+    from mapq_cases import branch_cases
+
+    args, wanted, _ = branch_cases()
+    got = _mapqv_on_the_card_equals_cpu(dev, args).numpy()
+    np.testing.assert_array_equal(got[wanted >= 0], wanted[wanted >= 0])
+
+
+def test_mapqv_kernel_near_integer_qualities(dev):
+    """Six-candidate partitions under unit costs whose float qualities fall
+    near integers (``test_mapq_math_is_the_same_on_the_card``'s rows, six
+    candidates wide): the truncation sees the CPU's last bits."""
+    rng = np.random.default_rng(8)
+    B, CD = 8192, 6
+    n_err = np.sort(rng.integers(0, 80, (B, CD)), axis=1).astype(np.int32)
+    z = np.zeros((B, CD), np.int32)
+    args = (-4000 + 5 * n_err, np.ones((B, CD), bool), z, np.full((B, CD), 900, np.int32),
+            np.full((B, CD), 800, np.int32), z, n_err, z)
+    _mapqv_on_the_card_equals_cpu(dev, args, dict(mismatch_prob=1, ins_cost=1, del_cost=1))
+
+
+@pytest.mark.parametrize("fault", ["valid_dtype", "lo_on_cpu", "hi_strided", "nm_shape"])
+def test_mapqv_wrapper_validates_inputs(dev, fault):
+    from blasr_tpu_torch.ops.mapqv import map_qv_reference
+    from mapq_cases import random_case
+
+    args = [torch.from_numpy(a).to(dev) for a in random_case(4, 3, B=8)]
+    if fault == "valid_dtype":
+        args[1] = args[1].to(torch.uint8)
+    elif fault == "lo_on_cpu":
+        args[2] = args[2].cpu()
+    elif fault == "hi_strided":
+        args[3] = torch.cat([args[3], args[3]], dim=1)[:, ::2]
+    else:
+        args[4] = args[4][:, :3].contiguous()
+    with pytest.raises(ValueError):
+        map_qv_reference(*args)
+
+
+def test_mapqv_one_launch_per_main_dp_call(dev):
+    """A batch mapped with the ``ecoli_m4`` cell's flags (at this genome's
+    seed length): one MAPQ launch per DP call, and the records equal those
+    of the same run with MAPQ's plain version on the card."""
+    from blasr_tpu_torch import ops
+    from blasr_tpu_torch.cli.args import build_arg_parser, params_from_args
+    from blasr_tpu_torch.index.artifacts import build_index_from_arrays
+    from blasr_tpu_torch.io.batching import Read
+    from blasr_tpu_torch.io.seqdb import SeqDB
+    from blasr_tpu_torch.ops import mapqv
+    from blasr_tpu_torch.output.m4 import format_m4
+    from blasr_tpu_torch.pipeline import mapper
+    from blasr_tpu_torch.pipeline.runner import run_mapping
+
+    rng = np.random.default_rng(29)
+    G = 200_000
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    genome[120_000:122_000] = genome[20_000:22_000]   # a repeat: MAPQ below 254
+    index = build_index_from_arrays(genome, SeqDB(["ref"], np.array([0, G]), ["0" * 32]), k=10)
+    reads = []
+    for i in range(48):
+        if i % 4 == 0:   # inside the repeat's first copy
+            s, n = 20_000 + int(rng.integers(0, 900)), int(rng.integers(300, 1000))
+        else:
+            s, n = int(rng.integers(0, G - 3000)), int(rng.integers(300, 2500))
+        r = genome[s : s + n].copy()
+        r[::29] = (r[::29] + 1) % 4
+        reads.append(Read(f"r{i}", r, None, i))
+    args = build_arg_parser().parse_args(
+        ["r.fa", "g.fa", "-m", "4", "-bestn", "1", "-nCandidates", "10", "-maxReadLen", "3328",
+         "-batchSize", "1024", "-minMatch", "10"])
+    params = params_from_args(args)
+
+    def plain(*a, **kw):
+        q = mapqv.map_qv_float(*a, **kw)
+        return torch.clamp(q, 0, mapqv.MAX_PHRED).to(torch.int32)
+
+    kept = mapper.map_qv_reference
+    mapper.map_qv_reference = plain
+    try:
+        want = run_mapping(index, reads, params, device="cuda")
+    finally:
+        mapper.map_qv_reference = kept
+    ops.reset_launch_counts()
+    got = run_mapping(index, reads, params, device="cuda")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert [format_m4(r) for r in got[0]] == [format_m4(r) for r in want[0]]
+    assert got[1] == want[1] and len(got[0]) >= 40
+    assert launches["mapqv"] == launches["banded_dp"] >= 1
+    assert {r.mapqv for r in got[0]} - {254}
+
+
 WALK_NUM = 33437
 
 

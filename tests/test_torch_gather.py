@@ -63,7 +63,7 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     gather_spans(src, torch.tensor([0, 5], dtype=torch.int32), 4)
     gather_rows(src.reshape(16, 16), torch.tensor([1], dtype=torch.int32))
     assert launch_counts() == {"banded_dp": 0, "gather_spans": 0, "gather_rows": 0,
-                               "traceback_walk": 0}
+                               "traceback_walk": 0, "mapqv": 0}
 
 
 @pytest.mark.parametrize(
